@@ -1,0 +1,26 @@
+"""yhair_tpu_torch — the hair path tracer in PyTorch, for NVIDIA Hopper.
+
+A second implementation of ``yhair_tpu`` beside it: the same modules under
+the same names, written with torch tensors, and the TPU's Pallas cluster
+kernels replaced by CUDA kernels written by hand for ``sm_90a``
+(``csrc/intersect.cu``). ``yhair_tpu`` stays the reference; the tests in
+``tests/test_torch_*.py`` hold each module of this package against it.
+
+This slice renders forward: the curly hairball (spheres, planes, point
+lights, a constant environment) through the cluster search.
+
+Layer map:
+  core/        RNG layout, camera, scene tensors
+  geometry/    ray-segment closest approach, brute-force nearest hit
+  accel/       median-split leaf order (host numpy)
+  ops/         clusters, cluster lists, the two CUDA kernels + plain twins
+  bsdf/        hair and surface BSDFs
+  integrator/  wavefront path tracer
+  parallel/    counter-hash uniforms and the tile pixel order
+  apps/        the render CLI and progressive renderer
+
+Entry points put their tensors on ``cuda`` unless the caller passes
+``device="cpu"``; without a card and without ``device="cpu"`` they raise.
+"""
+
+__version__ = "0.1.0"

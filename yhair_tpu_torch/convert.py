@@ -1,0 +1,86 @@
+"""Hand the reference's scene state to the port.
+
+The tests turn a ``yhair_tpu`` Scene or Clusters into numpy arrays
+(``{name: np.asarray(leaf)}``, see ``flat_fields``) and build the port's
+counterpart from them here, so both packages compute on the same arrays.
+Names are the reference's field paths joined with dots ("segments.p0",
+"hair.beta_m", "accel.tc", ...); static ints ("accel.n_clusters") stay
+ints. This module imports no JAX: ``np.asarray`` reads any array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .bsdf.hair import HairMaterial
+from .bsdf.surface import SurfaceMaterial
+from .core.scene import Scene
+from .device import resolve_device
+from .geometry.segments import Segments
+from .ops.clusters import Clusters
+
+# leading-dim-nonzero fields of features this slice does not render
+_UNSUPPORTED = {"tris.v0": "triangle meshes", "al_kind": "area lights",
+                "env_map": "an environment map", "tex_meta": "textures",
+                "crv_cp": "Bezier curves"}
+
+
+def flat_fields(tree, prefix="") -> dict:
+    """{dotted name: np.ndarray or int} of a NamedTuple tree (None leaves
+    are left out)."""
+    out = {}
+    for name, v in tree._asdict().items():
+        if v is None:
+            continue
+        if hasattr(v, "_asdict"):
+            out.update(flat_fields(v, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = v if isinstance(v, int) else np.array(v)
+    return out
+
+
+def clusters_from_numpy(fields: dict, device=None) -> Clusters:
+    """Clusters from {s0, s1, tc, cmin, cmax, seg_index, n_clusters,
+    cluster_size}."""
+    dev = resolve_device(device)
+
+    def t(k):
+        return torch.as_tensor(np.ascontiguousarray(fields[k]), device=dev)
+    return Clusters(s0=t("s0"), s1=t("s1"), tc=t("tc"), cmin=t("cmin"),
+                    cmax=t("cmax"), seg_index=t("seg_index"),
+                    n_clusters=int(fields["n_clusters"]),
+                    cluster_size=int(fields["cluster_size"]))
+
+
+def scene_from_numpy(fields: dict, device=None) -> Scene:
+    """Scene from the reference's flattened fields; raises
+    NotImplementedError for features this slice does not render."""
+    dev = resolve_device(device)
+    found = [what for k, what in _UNSUPPORTED.items()
+             if k in fields and np.shape(fields[k])[0]]
+    if np.ndim(fields["hair.beta_m"]) != 0:
+        found.append("per-shape hair materials")
+    if found:
+        raise NotImplementedError(
+            "yhair_tpu_torch does not render these scene features yet: "
+            + ", ".join(found))
+
+    def t(k):
+        return torch.as_tensor(np.ascontiguousarray(fields[k]), device=dev)
+
+    accel = None
+    if "accel.tc" in fields:
+        accel = clusters_from_numpy(
+            {k[len("accel."):]: v for k, v in fields.items()
+             if k.startswith("accel.")}, dev)
+    return Scene(
+        segments=Segments(*(t(f"segments.{k}") for k in Segments._fields)),
+        hair=HairMaterial(*(t(f"hair.{k}") for k in HairMaterial._fields)),
+        seg_mat_id=t("seg_mat_id"),
+        surf_mat=SurfaceMaterial(*(t(f"surf_mat.{k}")
+                                   for k in SurfaceMaterial._fields)),
+        sph_center=t("sph_center"), sph_radius=t("sph_radius"),
+        pln_point=t("pln_point"), pln_normal=t("pln_normal"),
+        light_pos=t("light_pos"), light_intensity=t("light_intensity"),
+        env=t("env"), accel=accel)

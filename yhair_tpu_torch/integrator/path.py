@@ -1,0 +1,339 @@
+"""Wavefront path tracer, forward (``yhair_tpu/integrator/path.py``).
+
+Camera rays -> bounce loop { intersect -> environment on miss -> direct
+lighting from point lights with shadow rays -> BSDF sample -> Russian
+roulette }, over a fixed depth with alive masks; the reference's
+``lax.scan`` is a Python loop here. It consumes the oracle's uniforms
+layout and matches ``yhair_tpu``'s ``trace`` with ``sampler="path"`` on
+scenes of hair segments, spheres, planes, point lights and a constant
+environment.
+
+The hit search is discrete; the winner's t is then recomputed with the
+closed form ``_closest_approach`` (``where(hit, s_re, t)``), as the
+reference does for its gradients. On the card the CUDA kernels' t is
+bit-equal to that recompute, which is what keeps the two in step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..bsdf import hair as th
+from ..bsdf import surface as ts
+from ..core.camera import Camera, camera_rays
+from ..core.rng import D_BOUNCE, D_PIXEL
+from ..core.safemath import safe_normalize
+from ..core.scene import Scene
+from ..device import resolve_device
+from ..geometry import segments as seg
+from ..ops import intersect_kernel as ik
+from ..ops.clusters import Clusters
+
+INF = seg.INF
+RR_START = 3
+
+
+class Hit(NamedTuple):
+    hit: torch.Tensor       # (N,) bool
+    t: torch.Tensor         # (N,)
+    mat: torch.Tensor       # (N,) int32: -1 miss, 0 hair, 1 surface
+    mat_id: torch.Tensor    # (N,) int32 into scene.surf_mat (surface hits)
+    position: torch.Tensor  # (N, 3)
+    normal: torch.Tensor    # (N, 3) surface shading normal
+    tangent: torch.Tensor   # (N, 3) hair frame x
+    frame_y: torch.Tensor   # (N, 3)
+    frame_z: torch.Tensor   # (N, 3)
+    h: torch.Tensor         # (N,)
+    radius: torch.Tensor    # (N,)
+
+
+def _permuted(fn, perm, *args):
+    """fn(*args) evaluated on the rays in ``perm`` order, results returned
+    in the original order. Only the search sees the sorted wavefront, so
+    128-ray blocks are coherent while every shading op keeps its rays in
+    place (per-ray search results do not depend on block composition)."""
+    if perm is None:
+        return fn(*args)
+    outs = fn(*(a[perm] for a in args))
+    if isinstance(outs, torch.Tensor):
+        outs = (outs,)
+    back = []
+    for x in outs:
+        y = torch.empty_like(x)
+        y[perm] = x
+        back.append(y)
+    return back[0] if len(back) == 1 else tuple(back)
+
+
+def _nearest(scene: Scene, o, d, chunk, perm=None):
+    """Segment search: the cluster kernels through scene.accel, else the
+    brute-force scan."""
+    if isinstance(scene.accel, Clusters):
+        fn = ik.make_nearest_fn(scene.accel, device=o.device)
+    else:
+        def fn(o_, d_):
+            return seg.nearest_hit(o_, d_, scene.segments, chunk=chunk)
+    return _permuted(fn, perm, o, d)
+
+
+def _norm(v):
+    return torch.sqrt((v * v).sum(-1))
+
+
+def _sphere_t(scene: Scene, o, d):
+    """(N, NS) entry distances over the spheres (INF where missed)."""
+    oc = o[:, None, :] - scene.sph_center[None]
+    b = (oc * d[:, None, :]).sum(-1)
+    c = (oc * oc).sum(-1) - scene.sph_radius[None] ** 2
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0, t1 = -b - sq, -b + sq
+    return torch.where((disc >= 0) & (t0 > 1e-4), t0,
+                       torch.where((disc >= 0) & (t1 > 1e-4), t1, INF))
+
+
+def _plane_t(scene: Scene, o, d):
+    """(N, NP) plane distances (INF where parallel or behind)."""
+    denom = (d[:, None, :] * scene.pln_normal[None]).sum(-1)
+    tp = ((scene.pln_point[None] - o[:, None, :])
+          * scene.pln_normal[None]).sum(-1) / torch.where(
+        torch.abs(denom) < 1e-12, 1e-12, denom)
+    return torch.where((torch.abs(denom) > 1e-9) & (tp > 1e-4), tp, INF)
+
+
+def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
+    """Closest hit over hair segments, spheres and planes."""
+    n = o.shape[0]
+    t_seg, idx, hit_seg = _nearest(scene, o, d, chunk, perm)
+    segs = scene.segments
+    # the search is discrete: recompute the winner's t in closed form
+    # (bit-equal to the CUDA kernels' t on the card)
+    s_re, _, _ = seg._closest_approach(o, d, segs.p0[idx], segs.p1[idx])
+    t_seg = torch.where(hit_seg, s_re, t_seg)
+
+    best_t = torch.where(hit_seg, t_seg, INF)
+    mat = torch.where(hit_seg, 0, -1).to(torch.int32)
+    mat_id = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    normal = torch.zeros_like(o)
+
+    if scene.n_spheres:
+        t_cand = _sphere_t(scene, o, d)
+        i_s = torch.argmin(t_cand, -1)
+        t_s = t_cand.gather(-1, i_s[:, None])[:, 0]
+        closer = t_s < best_t
+        best_t = torch.where(closer, t_s, best_t)
+        mat = torch.where(closer, 1, mat)
+        mat_id = torch.where(closer, i_s.to(torch.int32), mat_id)
+        n_s = (o + t_s[:, None] * d) - scene.sph_center[i_s]
+        n_s = n_s / torch.clamp(_norm(n_s)[:, None], min=1e-12)
+        normal = torch.where(closer[:, None], n_s, normal)
+
+    if scene.n_planes:
+        tp = _plane_t(scene, o, d)
+        i_p = torch.argmin(tp, -1)
+        t_p = tp.gather(-1, i_p[:, None])[:, 0]
+        closer = t_p < best_t
+        best_t = torch.where(closer, t_p, best_t)
+        mat = torch.where(closer, 1, mat)
+        mat_id = torch.where(closer, (scene.n_spheres + i_p).to(torch.int32),
+                             mat_id)
+        normal = torch.where(closer[:, None], scene.pln_normal[i_p], normal)
+
+    hit = best_t < INF
+    is_hair = hit & (mat == 0)
+    sh = seg.shade_info(o, d, torch.where(is_hair, best_t, 0.0), idx, segs)
+    pos = o + torch.where(hit, best_t, 0.0)[:, None] * d
+    return Hit(hit=hit, t=torch.where(hit, best_t, INF), mat=mat,
+               mat_id=mat_id,
+               position=torch.where(is_hair[:, None], sh.position, pos),
+               normal=normal, tangent=sh.tangent, frame_y=sh.frame_y,
+               frame_z=sh.frame_z, h=torch.where(is_hair, sh.h, 0.0),
+               radius=torch.where(is_hair, sh.radius, 0.0))
+
+
+def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
+    """Shadow rays: True where something lies before dist * (1 - 1e-4)."""
+    limit = dist * (1.0 - 1e-4)
+    if isinstance(scene.accel, Clusters):
+        occ = _permuted(ik.make_occluded_fn(scene.accel, device=o.device),
+                        perm, o, d, limit)
+    else:
+        t_seg, _, hit_seg = _nearest(scene, o, d, chunk, perm)
+        occ = hit_seg & (t_seg < limit)
+    if scene.n_spheres:
+        occ = occ | (_sphere_t(scene, o, d).amin(-1) < limit)
+    if scene.n_planes:
+        occ = occ | (_plane_t(scene, o, d).amin(-1) < limit)
+    return occ
+
+
+def _morton_spread3(x):
+    """Spread the low 10 bits of x so consecutive bits land 3 apart."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _ray_sort_perm(o, d, alive, lo, inv_ext):
+    """Coherence permutation of a wavefront: by (Morton cell of origin,
+    direction octant), dead rays last, so a 128-ray block lists few
+    clusters (after one bounce the rays of a block otherwise scatter
+    over the whole asset)."""
+    q = torch.clamp((o - lo) * inv_ext, 0.0, 1.0)
+    cell = (q * 1023.0).to(torch.int32)          # 10 bits per axis
+    m = ((_morton_spread3(cell[:, 0]) << 2)
+         | (_morton_spread3(cell[:, 1]) << 1)
+         | _morton_spread3(cell[:, 2]))
+    # position-major: the top 18 Morton bits, then the octant
+    key = ((m >> 12) << 3) | ((d[:, 0] > 0).to(torch.int32)
+                              + 2 * (d[:, 1] > 0).to(torch.int32)
+                              + 4 * (d[:, 2] > 0).to(torch.int32))
+    key = torch.where(alive, key, 1 << 29)
+    return torch.argsort(key, stable=True)
+
+
+def _sort_bounds(scene: Scene):
+    """Box of the real segments for the Morton sort. The cluster padding
+    segments (at 1e8) are left out: the reference's bounds include them,
+    which collapses every origin into Morton cell 0 (octant-only sort)."""
+    p0, p1 = scene.segments.p0, scene.segments.p1
+    if isinstance(scene.accel, Clusters):
+        real = scene.accel.seg_index >= 0
+        p0, p1 = p0[real], p1[real]
+    lo = torch.minimum(p0.amin(0), p1.amin(0))
+    hi = torch.maximum(p0.amax(0), p1.amax(0))
+    return lo, 1.0 / torch.clamp(hi - lo, min=1e-6)
+
+
+def _diffuse_frame(nrm):
+    a = torch.where(torch.abs(nrm[:, 0:1]) > 0.9,
+                    nrm.new_tensor([[0.0, 1.0, 0.0]]),
+                    nrm.new_tensor([[1.0, 0.0, 0.0]]))
+    t1 = safe_normalize(torch.linalg.cross(nrm, a))
+    return t1, torch.linalg.cross(nrm, t1)
+
+
+def _to_local(w, fx, fy, fz):
+    return torch.stack([(w * fx).sum(-1), (w * fy).sum(-1),
+                        (w * fz).sum(-1)], -1)
+
+
+def _to_world(w, fx, fy, fz):
+    return w[..., 0:1] * fx + w[..., 1:2] * fy + w[..., 2:3] * fz
+
+
+def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
+          sort_rays=None, return_alive=False, device=None):
+    """Path-trace a ray batch (the reference's ``sampler="path"``).
+
+    o, d: (N, 3); uniforms: (N, n_uniform_dims(max_depth)). -> L (N, 3).
+    sort_rays: sort each bounce's search by Morton cell (see
+    ``_ray_sort_perm``; the image is bit-identical either way). None =
+    on for large batches over large segment sets.
+    return_alive: also return per-depth (alive bounce rays, live shadow
+    rays) counts, each a (max_depth,) int64 tensor.
+    """
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    o, d, uniforms = o.to(dev), d.to(dev), uniforms.to(dev)
+    n = o.shape[0]
+    if sort_rays is None:
+        sort_rays = (max_depth > 1 and n >= 4096
+                     and scene.segments.p0.shape[0] >= 4096)
+    if sort_rays:
+        sort_lo, sort_inv = _sort_bounds(scene)
+
+    L = torch.zeros_like(o)
+    beta = torch.ones_like(o)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    perm = None
+    n_alive, n_shadow = [], []
+    for depth in range(max_depth):
+        ub = uniforms[:, D_PIXEL + D_BOUNCE * depth:
+                      D_PIXEL + D_BOUNCE * (depth + 1)]
+        n_alive.append(alive.sum())
+        # dead lanes become far-away rays: their sorted blocks list no
+        # clusters, so the kernels skip them
+        o_int = torch.where(alive[:, None], o, 1e8)
+        hs = intersect_scene(scene, o_int, d, chunk=chunk, perm=perm)
+        miss = alive & ~hs.hit
+        L = L + torch.where(miss[:, None], beta * scene.env, 0.0)
+        alive = alive & hs.hit
+        n_shadow.append(alive.sum() * scene.n_lights)
+        is_hair = hs.mat == 0
+        sp = scene.surf_mat.gather(hs.mat_id)
+        L = L + torch.where((alive & ~is_hair)[:, None],
+                            beta * sp.emission, 0.0)
+
+        # surface normals flipped to face the ray (double-sided shading)
+        nrm = hs.normal * torch.where(
+            ((hs.normal * d).sum(-1) > 0)[:, None], -1.0, 1.0)
+        t1, t2 = _diffuse_frame(nrm)
+        fx = torch.where(is_hair[:, None], hs.tangent, t1)
+        fy = torch.where(is_hair[:, None], hs.frame_y, t2)
+        fz = torch.where(is_hair[:, None], hs.frame_z, nrm)
+        wo = _to_local(-d, fx, fy, fz)
+        pos = hs.position
+        ray_eps = torch.where(is_hair, 2.0 * hs.radius, 1e-4)
+        # wi-independent hair BSDF work, shared by every wi below
+        hctx = th.hair_ctx(scene.hair, hs.h, wo)
+
+        # direct lighting: every point light, deterministic sum
+        for li in range(scene.n_lights):
+            to_l = scene.light_pos[li] - pos
+            dist = _norm(to_l)
+            wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
+            sh_o = pos + wi_w * ray_eps[:, None]
+            vis = ~occluded_scene(scene, sh_o, wi_w, dist - ray_eps,
+                                  chunk=chunk, perm=perm)
+            wi = _to_local(wi_w, fx, fy, fz)
+            f_hair = th.hair_f_ctx(hctx, wi) * torch.abs(wi[:, 2:3])
+            f_surf = ts.surface_f(sp, wo, wi) * torch.abs(wi[:, 2:3])
+            f = torch.where(is_hair[:, None], f_hair, f_surf)
+            contrib = beta * f * scene.light_intensity[li] / torch.clamp(
+                dist[:, None] ** 2, min=1e-12)
+            L = L + torch.where((alive & vis)[:, None], contrib, 0.0)
+
+        # BSDF sampling
+        wi_h = th.hair_sample_wi(hctx, ub[:, :4])
+        f_h, pdf_h = th.hair_f_pdf_ctx(hctx, wi_h)
+        w_hair = f_h * torch.abs(wi_h[:, 2:3]) / torch.clamp(
+            pdf_h[:, None], min=1e-12)
+        w_hair = torch.where((pdf_h > 1e-12)[:, None], w_hair, 0.0)
+        wi_s, w_surf, _, _ = ts.surface_sample(sp, wo, ub[:, :3])
+        wi = torch.where(is_hair[:, None], wi_h, wi_s)
+        beta = beta * torch.where(is_hair[:, None], w_hair, w_surf)
+
+        d = safe_normalize(_to_world(wi, fx, fy, fz))
+        o = pos + d * ray_eps[:, None]
+        alive = alive & (torch.abs(beta).amax(-1) > 0)
+        if depth >= RR_START:   # Russian roulette
+            p_cont = torch.clamp(beta.amax(-1), 0.05, 1.0)
+            alive = alive & ~(ub[:, 4] > p_cont)
+            beta = beta / p_cont[:, None]
+        if sort_rays and depth + 1 < max_depth:
+            perm = _ray_sort_perm(o, d, alive, sort_lo, sort_inv)
+    if return_alive:
+        return L, (torch.stack(n_alive), torch.stack(n_shadow))
+    return L
+
+
+def render(scene: Scene, cam: Camera, uniforms, max_depth=4, chunk=2048,
+           device=None):
+    """Render from a full uniforms tensor (H, W, spp, D) -> (H, W, 3)."""
+    dev = resolve_device(device)
+    uniforms, cam = uniforms.to(dev), cam.to(dev)
+    hgt, wid, spp, _ = uniforms.shape
+    jj, ii = torch.meshgrid(torch.arange(hgt, device=dev),
+                            torch.arange(wid, device=dev), indexing="ij")
+    i = ii.reshape(-1).repeat_interleave(spp)
+    j = jj.reshape(-1).repeat_interleave(spp)
+    u = uniforms.reshape(hgt * wid * spp, -1)
+    o, d = camera_rays(cam, wid, hgt, i.to(u.dtype), j.to(u.dtype),
+                       u[:, :4])
+    L = trace(scene, o, d, u, max_depth=max_depth, chunk=chunk, device=dev)
+    return L.reshape(hgt, wid, spp, 3).mean(2)
