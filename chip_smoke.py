@@ -16,6 +16,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             brute force on 1 ray in 16 (bit-equal winners), and every
             hit's t against the closed-form recompute (bit-equal).
             Kernel and plain times per launch are taken on these inputs.
+            For each kind of launch (search and list capacity) it prints
+            the mean and maximum list length and the kernels' work items.
+            The any kernel's bound counts the visits a sequential walk
+            needs until each block is dark (from any_pass_plain).
 3. main     the bench workload through ``apps.render.progressive_render``
             (512x512, 1 spp, depth 4, four strips), with the launch
             counts set to 0 just before and read just after.
@@ -49,6 +53,9 @@ HBM_BYTES_S = 3.35e12
 # FP32 operations of one ray-segment test (csrc/intersect.cu's note)
 FLOP_PER_TEST = 55
 TESTS_PER_VISIT = 128 * 128
+# the device kernels behind each counted launch (csrc/intersect.cu)
+DEVICE_KERNELS = {"hit_kernel": ("hit_kernel", "hit_merge_kernel"),
+                  "any_kernel": ("any_kernel",)}
 
 WIDTH = HEIGHT = 512
 SPP, DEPTH, STRIP = 1, 4, 65536
@@ -143,6 +150,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_lines(log):
+    """nvcc -Xptxas -v: each kernel's name, registers, shared memory and
+    spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln
+            or "Compiling entry function" in ln]
+
+
 def phase_build():
     from yhair_tpu_torch.ops import _cuda
     t0 = time.time()
@@ -155,10 +170,33 @@ def phase_build():
     print(smi, flush=True)
     emit(phase="build", ok=True, seconds=time.time() - t0,
          library=os.path.relpath(lib, ROOT),
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln],
+         ptxas=ptxas_lines(log),
          nvidia_smi=smi)
     return smi
+
+
+def list_stats(kinds, key, counts_p):
+    """Per kind of launch: list lengths (the sentinel counts C, the
+    visits it makes) and work items."""
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+    st = kinds.setdefault(key, dict(launches=0, blocks=0, visits=0,
+                                    max_list=0, work_items=0))
+    st["launches"] += 1
+    st["blocks"] += counts_p.numel()
+    st["visits"] += int(counts_p.sum())
+    st["max_list"] = max(st["max_list"], int(counts_p.max()))
+    st["work_items"] += int(ik._work_items(counts_p, ik.CHUNK)[-1])
+    return st
+
+
+def summarize_kinds(kinds):
+    return {k: dict(launches=v["launches"],
+                    mean_list=v["visits"] / max(v["blocks"], 1),
+                    max_list=v["max_list"],
+                    work_items_per_launch=v["work_items"] / v["launches"],
+                    **{f: v[f] for f in ("needed_visits", "kernel_visits")
+                       if f in v})
+            for k, v in sorted(kinds.items())}
 
 
 def phase_kernels(sc, cam, dev):
@@ -179,11 +217,13 @@ def phase_kernels(sc, cam, dev):
                                 DEPTH, device=dev)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(img).all()), "kernels", "strip not finite")
+    kinds = {}
 
     hit_stats = new_stats(len(rec.hit))
     for args, out in rec.hit:
         o, d, seeds, ids, counts, tc, k_cap = args
         ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, c)
+        list_stats(kinds, f"hit k_cap={k_cap}", counts_p)
         plain, ms_plain = timed(lambda: ik.hit_pass_plain(
             o, d, seeds, ids_p, counts_p, tc, k_cap))
         for name, a, b in zip(("t", "idx", "oid"), out, plain):
@@ -204,14 +244,19 @@ def phase_kernels(sc, cam, dev):
     for args, out, visits in rec.any:
         o, d, t_cap, ids, counts, tc, k_cap = args
         ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, c)
-        plain, ms_plain = timed(lambda: ik.any_pass_plain(
-            o, d, t_cap, ids_p, counts_p, tc, k_cap))
+        st = list_stats(kinds, f"any k_cap={k_cap}", counts_p)
+        (plain, need), ms_plain = timed(lambda: ik.any_pass_plain(
+            o, d, t_cap, ids_p, counts_p, tc, k_cap, return_visits=True))
         require(torch.equal(out, plain), "kernels",
                 f"any kernel differs from any_pass_plain "
                 f"({int((out != plain).sum())} rays)")
+        # the bound counts what a sequential front-to-back walk needs,
+        # whatever extra work the kernel's parallel items did
+        st["needed_visits"] = st.get("needed_visits", 0) + int(need.sum())
+        st["kernel_visits"] = st.get("kernel_visits", 0) + int(visits.sum())
         _, ms = timed(lambda: ik.any_pass(*args), 5)
         add_bound(any_stats, *bound_ms(
-            int(visits.sum()),
+            int(need.sum()),
             nbytes(o, d, t_cap, ids_p, counts_p, tc, out)))
         any_stats["ms"] += ms
         any_stats["plain_ms"] += ms_plain
@@ -248,11 +293,12 @@ def phase_kernels(sc, cam, dev):
          any_launches=any_stats["launches"], nearest_searches=len(
              rec.nearest), brute_force_rays=n_brute, recomputed_hits=n_hits,
          kernel_vs_plain="bit-equal", brute_force="bit-equal winners",
-         recompute="bit-equal t",
+         recompute="bit-equal t", chunk=ik.CHUNK,
          per_launch_ms={k: {f: st[f] for f in ("ms", "plain_ms", "ops_ms",
                                               "bytes_ms")}
                         for k, st in (("hit", hit_stats),
-                                      ("any", any_stats))})
+                                      ("any", any_stats))},
+         lists=summarize_kinds(kinds))
     return hit_stats, any_stats
 
 
@@ -370,9 +416,9 @@ def phase_profile(sc, cam, dev, top=12):
     by_layer = {e.key[len("layer:"):]: e.device_time_total / 1e3
                 for e in avg if e.key in layers
                 and e.device_type == DeviceType.CPU}
-    for name in ik.LAUNCHES:
+    for name, parts in DEVICE_KERNELS.items():
         by_layer[name] = sum(e.self_device_time_total for e in kernels
-                             if f"::{name}(" in e.key) / 1e3
+                             if any(f"::{k}(" in e.key for k in parts)) / 1e3
     by_layer["rest"] = device_ms - sum(by_layer.values())
     kernels.sort(key=lambda e: -e.self_device_time_total)
     emit(phase="profile", ok=device_ms > 0, strip_rays=STRIP, depth=DEPTH,

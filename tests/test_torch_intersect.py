@@ -169,3 +169,198 @@ def test_matches_reference_pallas_interpret(setup):
     occ = ik.make_occluded_fn(cl, device="cpu")(
         o, d, torch.as_tensor(np.asarray(t_max)))
     np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_j))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' work items: each block's list cut into chunks, each chunk
+# searched on its own, merged the way the kernels merge
+
+
+def _decode_items(prefix, counts, chunk):
+    """Every work item as (block, first list position, length), each
+    (n_items,) int64, in item order: the kernels' decode of an item."""
+    total = int(prefix[-1]) if prefix.numel() else 0
+    q = torch.arange(total)
+    pre = prefix.long()
+    b = torch.searchsorted(pre, q, right=True)
+    before = torch.where(b > 0, pre[(b - 1).clamp(min=0)], 0)
+    j0 = (q - before) * chunk
+    return b, j0, torch.clamp(counts.long()[b] - j0, max=chunk)
+
+
+def _merge_partials(parts):
+    """Fold unseeded (t, idx, oid) results in order by the strict
+    lexicographic (t, oid) minimum: on a tie the earlier one stays, as
+    the kernel's merge of a block's items does."""
+    best_t, best_idx, best_oid = parts[0]
+    for t, idx, oid in parts[1:]:
+        better = (t < best_t) | ((t == best_t) & (oid < best_oid))
+        best_t = torch.where(better, t, best_t)
+        best_idx = torch.where(better, idx, best_idx)
+        best_oid = torch.where(better, oid, best_oid)
+    return best_t, best_idx, best_oid
+
+
+def _item_lists(ids, counts, k_cap, chunk):
+    """(block, cluster ids of the item) for every work item, in item
+    order, from packed lists; the sentinel's items run over 0..C-1."""
+    prefix = ik._work_items(counts, chunk)
+    out = []
+    for b, j0, n in zip(*_decode_items(prefix, counts, chunk)):
+        b, j0, n = int(b), int(j0), int(n)
+        if counts[b] > k_cap:
+            item = torch.arange(j0, j0 + n, dtype=torch.int32)
+        else:
+            item = ids[b, j0:j0 + n]
+        out.append((b, item))
+    return out
+
+
+def _hit_pass_items(o, d, seeds, ids, counts, tc, k_cap, chunk=3):
+    """hit_pass_plain run item by item: each item unseeded under the seed
+    cap, a block's items folded in item order, then the seeds merged."""
+    ids, counts = ik._pack_lists(ids, counts, k_cap, tc.shape[0])
+    nb = o.shape[0] // ik.BLOCK
+    parts = [[] for _ in range(nb)]
+    for b, item in _item_lists(ids, counts, k_cap, chunk):
+        rows = slice(b * ik.BLOCK, (b + 1) * ik.BLOCK)
+        parts[b].append(ik._hit_best_plain(
+            o[rows], d[rows], seeds[0][rows], item[None],
+            torch.tensor([item.numel()], dtype=torch.int32), tc,
+            item.numel()))
+    none = (torch.full((ik.BLOCK,), ik.INF),
+            torch.zeros(ik.BLOCK, dtype=torch.int32),
+            torch.full((ik.BLOCK,), ik.NO_ID))
+    best = [_merge_partials(p) if p else none for p in parts]
+    best = tuple(torch.cat([x[i] for x in best]) for i in range(3))
+    return ik._merge_seeds(best, seeds)
+
+
+def _any_pass_items(o, d, t_cap, ids, counts, tc, k_cap, chunk=3):
+    """any_pass_plain run item by item, the items' flags OR-ed."""
+    ids, counts = ik._pack_lists(ids, counts, k_cap, tc.shape[0])
+    occ = torch.zeros(o.shape[0], dtype=torch.int32)
+    for b, item in _item_lists(ids, counts, k_cap, chunk):
+        rows = slice(b * ik.BLOCK, (b + 1) * ik.BLOCK)
+        occ[rows] |= ik.any_pass_plain(
+            o[rows], d[rows], t_cap[rows], item[None],
+            torch.tensor([item.numel()], dtype=torch.int32), tc,
+            item.numel())
+    return occ
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_work_items_cover_every_list_position_once(chunk):
+    """Sentinel (C = 40 > k_cap = 16) and zero-length lists included."""
+    k_cap, c = 16, 40
+    counts = torch.tensor([0, 5, 30, 0, 16, 1, 17, 9], dtype=torch.int32)
+    ids = torch.arange(8 * 40, dtype=torch.int32).reshape(8, 40)
+    ids, counts = ik._pack_lists(ids, counts, k_cap, c)
+    assert counts.tolist() == [0, 5, c, 0, 16, 1, c, 9]
+    prefix = ik._work_items(counts, chunk)
+    b, j0, n = _decode_items(prefix, counts, chunk)
+    assert int(prefix[-1]) == sum(-(-int(x) // chunk) for x in counts)
+    assert bool((n >= 1).all()) and bool((n <= chunk).all())
+    seen = sorted((int(bb), int(j)) for bb, jj, nn in zip(b, j0, n)
+                  for j in range(int(jj), int(jj + nn)))
+    assert seen == [(bb, j) for bb in range(8)
+                    for j in range(int(counts[bb]))]
+    # items of a block are consecutive and in list order
+    assert torch.equal(b, torch.sort(b, stable=True).values)
+
+
+@pytest.mark.parametrize("k_cap", [None, 4])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_hit_items_merge_to_the_whole_pass(setup, seeded, k_cap):
+    """Item by item and merged as the kernel merges == one plain pass,
+    bit for bit; k_cap 4 sends the longer lists as the sentinel."""
+    *_, cl = setup
+    o, d = _rays(13, 512)
+    n = o.shape[0]
+    ids, counts = ik._block_cluster_lists(o, d, cl)
+    k_cap = k_cap or ik._k_cap(cl.n_clusters)
+    seeds = (torch.full((n,), ik.INF), torch.zeros(n, dtype=torch.int32),
+             torch.full((n,), ik.NO_ID))
+    if seeded:  # a prefix pass's result, as pass 2 gets it
+        seeds = ik.hit_pass(o, d, seeds, ids[:, :4],
+                            torch.clamp(counts, max=4), cl.tc, 128)
+        assert (seeds[0] < ik.INF).sum() > 10
+    ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, cl.n_clusters)
+    want = ik.hit_pass_plain(o, d, seeds, ids_p, counts_p, cl.tc, k_cap)
+    got = _hit_pass_items(o, d, seeds, ids, counts, cl.tc, k_cap)
+    assert (want[0] < ik.INF).sum() > 50
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k_cap", [None, 4])
+def test_any_items_merge_to_the_whole_pass(setup, k_cap):
+    *_, cl = setup
+    o, d = _rays(14, 512)
+    t_cap = torch.as_tensor(np.random.default_rng(15).uniform(0.5, 4.0, 512),
+                            dtype=torch.float32)
+    ids, counts = ik._block_cluster_lists(o, d, cl, t_max=t_cap)
+    k_cap = k_cap or ik._k_cap(cl.n_clusters)
+    ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, cl.n_clusters)
+    want = ik.any_pass_plain(o, d, t_cap, ids_p, counts_p, cl.tc, k_cap)
+    got = _any_pass_items(o, d, t_cap, ids, counts, cl.tc, k_cap)
+    assert want.sum() > 20 and (1 - want).sum() > 20
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("search", ["nearest", "occluded"])
+def test_two_pass_searches_item_by_item(setup, monkeypatch, search):
+    """The two-pass searches with every pass run item by item equal the
+    plain passes, bit for bit (short prefixes force both passes)."""
+    *_, cl = setup
+    monkeypatch.setattr(ik, "K_PREFIX", 4)
+    monkeypatch.setattr(ik, "K_ANY_PREFIX", 2)
+    o, d = _rays(16, 500)
+    t_max = torch.as_tensor(np.random.default_rng(17).uniform(0.5, 4.0, 500),
+                            dtype=torch.float32)
+
+    def run():
+        if search == "nearest":
+            return ik.make_nearest_fn(cl, device="cpu")(o, d)
+        return (ik.make_occluded_fn(cl, device="cpu")(o, d, t_max),)
+    want = run()
+    monkeypatch.setattr(ik, "hit_pass", _hit_pass_items)
+    monkeypatch.setattr(ik, "any_pass", _any_pass_items)
+    got = run()
+    assert got[0].any()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_any_plain_counts_the_sequential_walk(setup):
+    """return_visits: a block's visits end at the one after which all its
+    rays are dark, or at its count."""
+    *_, cl = setup
+    # each block's rays come from one side at the midpoints of one
+    # cluster's segments: the block is dark once its walk reaches that
+    # cluster, with clusters behind it left in the list
+    rng = np.random.default_rng(18)
+    seg = np.concatenate([c * 128 + np.arange(128) for c in
+                          rng.choice(cl.n_clusters // 2, 8, replace=False)])
+    mid = 0.5 * (cl.s0[seg, :3] + cl.s1[seg, :3]).numpy()
+    u = np.repeat(rng.normal(size=(8, 3)), 128, axis=0)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    o = torch.as_tensor(mid + 3.0 * u, dtype=torch.float32)
+    d = torch.as_tensor(-u, dtype=torch.float32)
+    t_cap = torch.full((1024,), 1e3)
+    ids, counts = ik._block_cluster_lists(o, d, cl, t_max=t_cap)
+    k_cap = ik._k_cap(cl.n_clusters)
+    ids, counts = ik._pack_lists(ids, counts, k_cap, cl.n_clusters)
+    occ, visits = ik.any_pass_plain(o, d, t_cap, ids, counts, cl.tc, k_cap,
+                                    return_visits=True)
+    assert torch.equal(occ, ik.any_pass_plain(o, d, t_cap, ids, counts,
+                                              cl.tc, k_cap))
+    dark_at = ik.any_pass_plain(o, d, t_cap, ids,
+                                torch.minimum(counts, visits), cl.tc,
+                                k_cap).view(-1, ik.BLOCK).all(1)
+    before = ik.any_pass_plain(o, d, t_cap, ids,
+                               torch.clamp(visits - 1, min=0), cl.tc,
+                               k_cap).view(-1, ik.BLOCK).all(1)
+    assert bool((visits <= counts).all()) and not bool(before.any())
+    assert bool((dark_at | (visits == counts)).all())
+    assert bool((visits < counts).any()), "no block went dark early"

@@ -5,10 +5,11 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 
-Inputs are the small hairball's clusters and random rays made with
-numpy from a seed. Kernel and plain version do the same arithmetic in
-the same order (the kernels are built without FMA contraction), so
-their outputs are compared bit for bit.
+Inputs are the small hairball's clusters (a larger one where a list of
+hundreds of clusters is needed) and rays made with numpy from a seed.
+Kernel and plain version do the same arithmetic in the same order (the
+kernels are built without FMA contraction), so their outputs are
+compared bit for bit, whatever order the kernels' work items ran in.
 """
 
 import numpy as np
@@ -35,6 +36,15 @@ def clusters():
     scene_d, _ = gen.curly_hairball(n_strands=300, n_seg=8)
     _, cl = build_scene_clusters(tscene.from_dict(scene_d, device="cpu"),
                                  device="cpu")
+    return cl
+
+
+@pytest.fixture(scope="module")
+def big_clusters():
+    scene_d, _ = gen.curly_hairball(n_strands=3000, n_seg=8)
+    _, cl = build_scene_clusters(tscene.from_dict(scene_d, device="cpu"),
+                                 device="cpu")
+    assert cl.n_clusters >= 256
     return cl
 
 
@@ -97,3 +107,116 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(clusters, cuda):
         ik.any_pass(o, d, torch.ones(o.shape[0], device=cuda,
                                      dtype=torch.float64), ids, counts, tc,
                     k_cap)
+
+
+def _no_seeds(n, dev):
+    return (torch.full((n,), ik.INF, device=dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.full((n,), ik.NO_ID, device=dev))
+
+
+def _check_hit(o, d, seeds, ids, counts, tc, k_cap):
+    before = ik.LAUNCHES["hit_kernel"]
+    got = ik.hit_pass(o, d, seeds, ids, counts, tc, k_cap)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["hit_kernel"] == before + 1
+    ids, counts = ik._pack_lists(ids, counts, k_cap, tc.shape[0])
+    want = ik.hit_pass_plain(o, d, seeds, ids, counts, tc, k_cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return got
+
+
+def _check_any(o, d, t_cap, ids, counts, tc, k_cap):
+    """-> (occ, the kernel's visits, the sequential walk's visits)."""
+    visits = torch.empty(counts.shape, dtype=torch.int32, device=o.device)
+    got = ik.any_pass(o, d, t_cap, ids, counts, tc, k_cap, visits=visits)
+    torch.cuda.synchronize()
+    ids, counts = ik._pack_lists(ids, counts, k_cap, tc.shape[0])
+    want, need = ik.any_pass_plain(o, d, t_cap, ids, counts, tc, k_cap,
+                                   return_visits=True)
+    assert torch.equal(got, want)
+    return got, visits, need
+
+
+@pytest.mark.parametrize("k_cap", [None, 4])
+@pytest.mark.parametrize("kind", ["hit", "any"])
+def test_long_list_beside_short_ones(big_clusters, cuda, kind, k_cap):
+    """Block 0 lists every cluster, block 1 one, block 2 none, block 3
+    its own front-to-back list; k_cap 4 sends blocks 0 and 3 as the
+    sentinel."""
+    cl = big_clusters
+    c = cl.n_clusters
+    o, d, ids, counts, tc, full_cap = _pass_inputs(cl, cuda, 20, n=512)
+    k_cap = k_cap or full_cap
+    rows = torch.zeros((4, full_cap), dtype=torch.int32, device=cuda)
+    rows[0, :c] = torch.as_tensor(np.random.default_rng(21).permutation(c),
+                                  dtype=torch.int32)
+    rows[1, 0] = ids[1, 0]
+    rows[3] = ids[3]
+    counts = torch.tensor([c, 1, 0, int(counts[3])], dtype=torch.int32,
+                          device=cuda)
+    assert int(counts[3]) > 4
+    if kind == "hit":
+        got = _check_hit(o, d, _no_seeds(512, cuda), rows, counts, tc,
+                         k_cap)
+        assert (got[0][:128] < ik.INF).sum() > 10
+    else:
+        t_cap = torch.full((512,), 3.0, device=cuda)
+        got, _, _ = _check_any(o, d, t_cap, rows, counts, tc, k_cap)
+        assert got[:128].sum() > 10
+
+
+def test_pass_two_with_seeds(clusters, cuda):
+    """A pass-2 launch: seeds from a prefix pass, the rest of the lists."""
+    o, d, ids, counts, tc, k_cap = _pass_inputs(clusters, cuda, 22)
+    seeds = ik.hit_pass_plain(o, d, _no_seeds(o.shape[0], cuda),
+                              *ik._pack_lists(ids[:, :3],
+                                              torch.clamp(counts, max=3),
+                                              128, clusters.n_clusters),
+                              tc, 128)
+    assert (seeds[0] < ik.INF).sum() > 20
+    got = _check_hit(o, d, seeds, ids[:, 3:], torch.clamp(counts - 3, min=0),
+                     tc, k_cap)
+    assert (got[0] < seeds[0]).sum() > 0
+
+
+def _aimed(cl, dev, n_blocks, seed):
+    """Each block's rays come from one side at the midpoints of one
+    cluster's segments; its list puts that cluster first, then every
+    other cluster. -> o, d, ids, counts."""
+    rng = np.random.default_rng(seed)
+    c = cl.n_clusters
+    full = np.flatnonzero((cl.seg_index.numpy().reshape(c, 128) >= 0)
+                          .all(1))
+    first = rng.choice(full, n_blocks, replace=False)
+    seg = (first[:, None] * 128 + np.arange(128)).reshape(-1)
+    mid = 0.5 * (cl.s0[seg, :3] + cl.s1[seg, :3]).numpy()
+    u = np.repeat(rng.normal(size=(n_blocks, 3)), 128, axis=0)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    ids = np.stack([np.concatenate([[f], np.delete(np.arange(c), f)])
+                    for f in first]).astype(np.int32)
+    t = (torch.as_tensor(mid + 3.0 * u, dtype=torch.float32),
+         torch.as_tensor(-u, dtype=torch.float32), torch.as_tensor(ids),
+         torch.full((n_blocks,), c, dtype=torch.int32))
+    return [x.to(dev) for x in t]
+
+
+@pytest.mark.parametrize("dark", [True, False])
+def test_any_every_block_or_no_block_goes_dark(big_clusters, cuda, dark):
+    """dark: every ray hits the block's first cluster, so a sequential
+    walk needs one visit per block. Otherwise t_cap is just above T_MIN,
+    nothing is hit, and every block's items visit its whole list."""
+    cl = big_clusters
+    o, d, ids, counts = _aimed(cl, cuda, 8, 23)
+    tc = cl.tc.to(cuda)
+    t_cap = torch.full((o.shape[0],), 1e3 if dark else 2 * ik.T_MIN,
+                       device=cuda)
+    occ, visits, need = _check_any(o, d, t_cap, ids, counts, tc,
+                                   ik._k_cap(cl.n_clusters))
+    if dark:
+        assert bool(occ.all()) and bool((need == 1).all())
+        assert bool((visits >= 1).all())
+    else:
+        assert not bool(occ.any())
+        assert torch.equal(need, counts) and torch.equal(visits, counts)

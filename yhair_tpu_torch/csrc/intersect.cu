@@ -1,72 +1,262 @@
 // Ray - hair-cluster intersection kernels for NVIDIA Hopper (sm_90a).
 //
-// hit_kernel replaces the TPU kernel yhair_tpu/ops/intersect_kernel.py:
-// _hit_kernel (launched by _hit_pass through _common_call's
-// pl.pallas_call); any_kernel replaces _any_kernel in the same file
-// (launched by any_hit.run_pass). Both share segment_test, which is
-// _segment_test operation for operation.
+// hit_kernel (with its merge, hit_merge_kernel) replaces the TPU kernel
+// yhair_tpu/ops/intersect_kernel.py:_hit_kernel (launched by _hit_pass
+// through _common_call's pl.pallas_call); any_kernel replaces
+// _any_kernel in the same file (launched by any_hit.run_pass). Both share
+// segment_test, which is _segment_test operation for operation.
 //
-// Layout: one CUDA block of 128 threads per 128-ray block, one thread per
-// ray. The block walks its own front-to-back cluster-id list (row b of a
-// plain (nb, k_cap) int32 array); counts[b] > k_cap is the sentinel for
-// "scan every cluster in order". For each visit the 128 threads stage
-// rows 0-9 of the cluster's (16, 128) tile in shared memory (5 KB) and
-// each thread tests its ray against the 128 segments.
+// What bounds them on an H100: each ray-segment test is about 55 FP32
+// operations, a visited (128-ray block, cluster) pair is 128 x 128 tests,
+// and the tiles (8 MB for the 10k-strand hairball) sit in the 50 MB L2.
+// So the least time is visits x 128^2 x 55 / (67 TFLOP/s FP32): the
+// kernels are bound by operations. With FMA contraction off (below) half
+// of that peak is the practical ceiling. Three things kept a first design
+// (one 128-thread block walking each ray block's list) far from it:
+//
+// 1. One partial wave paced by the longest list. 512 ray blocks made 512
+//    blocks of 4 warps on 132 SMs, and a block whose list held hundreds
+//    of clusters walked them alone. Here each list is cut into work
+//    items of `chunk` consecutive list positions (a ray block, a start, a
+//    length; the wrapper builds the inclusive prefix sum of the items per
+//    block). A persistent grid of as many CTAs as fit on the card takes
+//    items from a global atomic counter and finds an item's block by a
+//    binary search of the prefix sum. Long lists spread over many CTAs
+//    and the SMs finish together. counts > k_cap is the sentinel "scan
+//    every cluster in order": its items run over 0..C-1.
+// 2. Too few warps to hide the latency of a dependent ~55-operation
+//    test with an IEEE division. TPR threads test each ray, each VEC
+//    consecutive lanes per shared-memory load (lanes (i * TPR + h) *
+//    VEC + l of the 128), so a CTA has 128 x TPR consumer threads, and
+//    several CTAs share an SM.
+// 3. A stalled tile load between two block barriers on every visit.
+//    Rows 0-9 of a tile are 5,120 contiguous bytes on an 8,192-byte
+//    boundary, so one producer thread fetches a visit's tile with one
+//    1-D bulk copy (cp.async.bulk, completed on an mbarrier) into a ring
+//    of STAGES buffers, running ahead of the consumers. Consumers wait on
+//    the stage's "full" barrier and release it on its "empty" barrier;
+//    no block-wide barrier remains in the loop.
+//
+// Merging items exactly. hit: each item writes, per ray, the
+// lexicographic minimum of (t, original id) over its visits (ties, which
+// only padding lanes can make, go to the earlier (list position, lane),
+// as in a sequential walk) into scratch slot `item`; hit_merge_kernel
+// then folds a block's items in item order and merges the pass seeds.
+// The result is the sequential walk's, bit for bit, whatever order the
+// items ran in. The wrapper cannot know the item count without a host
+// sync, so it sizes the partials for the most the packed counts allow:
+// nb x ceil(max(k_cap, C) / chunk) items x 128 rays x 12 bytes, 201 MB
+// for the bench hairball (512 blocks, C = 1,024, chunk 4), of which a
+// launch writes under 5%. It grows with the ray blocks and the clusters
+// and inversely with the chunk. any: occlusion is an OR, so an item stores 1 into the
+// ray's flag. A ray whose flag another item already set counts as dark,
+// and an item stops once all 128 of its rays are dark; occlusion is
+// monotone, so a stale read only costs work.
 //
 // Exactness: this file is compiled with -fmad=false and IEEE division and
 // square root, so every product and sum rounds on its own as the torch
 // ops of the port's _closest_approach do. That keeps a hit's t bit-equal
 // to the integrator's recompute of the winning segment, and the winner
 // equal to the brute-force search under the (t, original id) tie-break.
-//
-// What bounds it on an H100: each ray-segment test is about 55 FP32
-// operations, so a visited (block, cluster) pair costs 128 x 128 x 55
-// FLOP, while the tiles (8 MB for the 10k-strand hairball) sit in the
-// 50 MB L2. The kernel is compute-bound: the least time is
-// visits x 128^2 x 55 / (67 TFLOP/s FP32). This first version is the
-// simple, correct one: each thread keeps its own running best, so the
-// TPU's per-lane state and cross-lane reduction are gone (the (t, id)
-// minimum is associative, so the winner is the same), and the tile is
-// read from shared memory as broadcasts. Overlapping the next tile's load
-// with the current tests (cp.async / TMA double buffering) and splitting
-// the 128 segments over more threads are left for later work.
+
+#include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BLOCK = 128;      // rays per block = threads per block
+constexpr int RAYS = 128;       // rays per ray block
 constexpr int K = 128;          // segments per cluster (tile lanes)
 constexpr int TILE_ROWS = 16;   // rows per tile in device memory
 constexpr int USED_ROWS = 10;   // p0.xyz, r0, d2.xyz, dr, |d2|^2, oid
+constexpr int TILE_BYTES = USED_ROWS * K * 4;
+// TPR, VEC and the wrapper's CHUNK were chosen by timing the bench strip's
+// launches on an H100 at other values (PERF.md has the times)
+constexpr int TPR = 2;          // threads per ray
+constexpr int VEC = 4;          // lanes per shared-memory load
+constexpr int GROUPS = K / (TPR * VEC);  // loads per row and thread
+constexpr int CONSUMERS = RAYS * TPR;
+constexpr int THREADS = CONSUMERS + 32;  // + one producer warp
+constexpr int STAGES = 4;       // tile ring depth
+constexpr int SLOTS = STAGES + 1;  // items a ring can span, +1
 constexpr float T_MIN = 1e-4f;
 constexpr float NO_HIT = 1e30f;
 constexpr float NO_ID = 3.4e38f;
+constexpr int FIRST = 1, LAST = 2, END = 4;
 
-__device__ __forceinline__ int cluster_at(const int* ids_row, int i,
-                                          int k_cap, bool use_all) {
-  return use_all ? i : ids_row[min(i, k_cap - 1)];
+static_assert(K % TPR == 0 && (TPR & (TPR - 1)) == 0 && TPR <= 32,
+              "TPR must be a power of two dividing the tile width");
+static_assert(VEC == 1 || VEC == 2 || VEC == 4, "VEC lanes per load");
+
+// VEC consecutive lanes of one tile row, read with one load
+struct __align__(4 * VEC) Lanes {
+  float x[VEC];
+};
+
+// rows 0-8 of a thread's VEC lanes k0.. of a staged tile; the lanes of
+// a warp's threads lie side by side, so a warp reads each row without a
+// bank conflict
+struct Group {
+  Lanes row[USED_ROWS - 1];
+};
+
+__device__ __forceinline__ Group load_group(const float (*tile)[K],
+                                            int k0) {
+  Group g;
+#pragma unroll
+  for (int r = 0; r < USED_ROWS - 1; ++r)
+    g.row[r] = *reinterpret_cast<const Lanes*>(&tile[r][k0]);
+  return g;
 }
 
-__device__ __forceinline__ void stage_tile(float (*tile)[K],
-                                           const float* __restrict__ tc,
-                                           int cid) {
+// one published visit: the producer writes it before it arrives on the
+// stage's full barrier, which releases it to the consumers
+struct Visit {
+  int b, j, cid, item, slot, flags;
+};
+
+struct __align__(128) Shared {
+  float tile[STAGES][USED_ROWS][K];
+  unsigned long long full[STAGES];
+  unsigned long long empty[STAGES];
+  Visit meta[STAGES];
+  int dark[SLOTS];  // any: dark rays of the item in each slot
+};
+
+// the work-item plan shared by both kernels
+struct Plan {
+  const int* ids;      // (nb, k_cap) front-to-back cluster lists
+  const int* counts;   // (nb,), > k_cap = scan every cluster
+  const int* prefix;   // (nb,) inclusive sum of ceil(counts / chunk)
+  const float* tc;     // (C, 16, 128) tiles
+  int* next_item;      // global item counter, zero at launch
+  int nb, k_cap, chunk;
+};
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem(bar)),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one thread: expect TILE_BYTES on the full barrier, then copy rows 0-9
+// of tile `cid` into the stage with one bulk copy that completes there
+__device__ __forceinline__ void load_tile(float* dst, const float* tc,
+                                          int cid,
+                                          unsigned long long* full) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem(full)),
+      "r"(TILE_BYTES)
+      : "memory");
   const float* src = tc + static_cast<size_t>(cid) * TILE_ROWS * K;
-  for (int row = 0; row < USED_ROWS; ++row)
-    tile[row][threadIdx.x] = src[row * K + threadIdx.x];
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(TILE_BYTES),
+      "r"(smem(full))
+      : "memory");
 }
 
-// _segment_test for one (ray, lane): closest approach, subtract-then-
-// square distance, inclusive s <= t_cap.
-__device__ __forceinline__ bool segment_test(float (*tile)[K], int k,
+// the block, first list position and length of work item `item`; false
+// past the last item
+__device__ bool decode(const Plan& p, int item, int* b, int* j0, int* n) {
+  if (item >= p.prefix[p.nb - 1]) return false;
+  int lo = 0, hi = p.nb - 1;  // the first block whose prefix exceeds item
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (p.prefix[mid] > item) hi = mid; else lo = mid + 1;
+  }
+  *b = lo;
+  *j0 = (item - (lo ? p.prefix[lo - 1] : 0)) * p.chunk;
+  *n = min(p.chunk, p.counts[lo] - *j0);
+  return true;
+}
+
+// the producer: one thread takes items from the counter and publishes
+// their visits into the ring. any: it stops an item once the item's 128
+// rays are dark, and counts the visits it publishes per block.
+template <bool ANY>
+__device__ void produce(Shared& sh, const Plan& p, int* visits) {
+  int stage = 0;
+  uint32_t parity = 1;  // a fresh empty barrier counts as released
+  int b, j0, n;
+  int item = atomicAdd(p.next_item, 1);
+  bool have = decode(p, item, &b, &j0, &n);
+  for (int seq = 0; have; ++seq) {
+    int nb_, nj0, nn;
+    const int next = atomicAdd(p.next_item, 1);
+    const bool next_have = decode(p, next, &nb_, &nj0, &nn);
+    const int slot = seq % SLOTS;
+    const bool use_all = p.counts[b] > p.k_cap;
+    const int* row = p.ids + static_cast<size_t>(b) * p.k_cap;
+    for (int j = j0; j < j0 + n; ++j) {
+      const int cid = use_all ? j : row[j];
+      mbar_wait(&sh.empty[stage], parity);
+      if (ANY) {
+        // the slot's previous item ended STAGES + 1 items ago, before
+        // the visit this wait released
+        if (j == j0) sh.dark[slot] = 0;
+        else if (*static_cast<volatile int*>(&sh.dark[slot]) >= RAYS) break;
+      }
+      sh.meta[stage] = Visit{b, j, cid, item, slot,
+                             (j == j0 ? FIRST : 0) |
+                                 (j == j0 + n - 1 ? LAST : 0)};
+      load_tile(&sh.tile[stage][0][0], p.tc, cid, &sh.full[stage]);
+      if (ANY && visits != nullptr) atomicAdd(visits + b, 1);
+      if (++stage == STAGES) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    item = next;
+    b = nb_;
+    j0 = nj0;
+    n = nn;
+    have = next_have;
+  }
+  mbar_wait(&sh.empty[stage], parity);
+  sh.meta[stage].flags = END;
+  mbar_arrive(&sh.full[stage]);
+}
+
+// _segment_test for one (ray, lane v of a group): closest approach,
+// subtract-then-square distance, inclusive s <= t_cap.
+__device__ __forceinline__ bool segment_test(const Group& g, int v,
                                              float ox, float oy, float oz,
                                              float dx, float dy, float dz,
                                              float t_cap, float* s_out) {
-  const float p0x = tile[0][k], p0y = tile[1][k], p0z = tile[2][k];
-  const float r0 = tile[3][k];
-  const float d2x = tile[4][k], d2y = tile[5][k], d2z = tile[6][k];
-  const float dr = tile[7][k];
-  const float c_seg = tile[8][k];
+  const float p0x = g.row[0].x[v], p0y = g.row[1].x[v];
+  const float p0z = g.row[2].x[v], r0 = g.row[3].x[v];
+  const float d2x = g.row[4].x[v], d2y = g.row[5].x[v];
+  const float d2z = g.row[6].x[v], dr = g.row[7].x[v];
+  const float c_seg = g.row[8].x[v];
   const float w0x = ox - p0x, w0y = oy - p0y, w0z = oz - p0z;
   const float B = dx * d2x + dy * d2y + dz * d2z;
   const float dd = dx * w0x + dy * w0y + dz * w0z;
@@ -83,113 +273,260 @@ __device__ __forceinline__ bool segment_test(float (*tile)[K], int k,
   return (dist2 <= r * r) && (s > T_MIN) && (s <= t_cap);
 }
 
-__global__ void __launch_bounds__(BLOCK)
-hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
-           const float* __restrict__ t0, const int* __restrict__ i0,
-           const float* __restrict__ oid0, const int* __restrict__ ids,
-           const int* __restrict__ counts, const float* __restrict__ tc,
-           int k_cap, float* __restrict__ t_out, int* __restrict__ idx_out,
-           float* __restrict__ oid_out) {
-  __shared__ float tile[USED_ROWS][K];
-  const int b = blockIdx.x;
-  const int r = b * BLOCK + threadIdx.x;
-  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-  // the candidate bound stays the pass seed, never tightened in the loop:
-  // the inclusive <= keeps equal-t candidates for the (t, id) tie-break
-  const float t_seed = t0[r];
-  const int n_hit = counts[b];
-  const bool use_all = n_hit > k_cap;
-  const int* ids_row = ids + static_cast<size_t>(b) * k_cap;
+__device__ __forceinline__ void init_ring(Shared& sh) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sh.full[s], 1);
+      mbar_init(&sh.empty[s], CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
 
+// a consumer warp releases the stage once all its lanes are done with it
+__device__ __forceinline__ void release(Shared& sh, int stage) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&sh.empty[stage]);
+}
+
+// Per item and ray: the lexicographic minimum of (t, original id) over
+// the item's visits, candidates T_MIN < s <= the pass seed t0, written
+// to slot `item` of the partials; ties go to the earlier (j, lane).
+__global__ void __launch_bounds__(THREADS)
+hit_kernel(Plan p, const float* __restrict__ o, const float* __restrict__ d,
+           const float* __restrict__ t0, float* __restrict__ part_t,
+           float* __restrict__ part_oid, int* __restrict__ part_idx) {
+  __shared__ Shared sh;
+  init_ring(sh);
+  if (threadIdx.x >= CONSUMERS) {
+    if (threadIdx.x == CONSUMERS) produce<false>(sh, p, nullptr);
+    return;
+  }
+  const int ray = threadIdx.x / TPR, h = threadIdx.x % TPR;
+  float ox = 0, oy = 0, oz = 0, dx = 0, dy = 0, dz = 0, cap = 0;
   float best_t = NO_HIT, best_oid = NO_ID;
-  int best_idx = 0;
-  for (int i = 0; i < n_hit; ++i) {
-    const int cid = cluster_at(ids_row, i, k_cap, use_all);
-    __syncthreads();  // every thread is done with the previous tile
-    stage_tile(tile, tc, cid);
-    __syncthreads();
-    for (int k = 0; k < K; ++k) {
-      float s;
-      if (segment_test(tile, k, ox, oy, oz, dx, dy, dz, t_seed, &s)) {
-        const float oid = tile[9][k];
-        if (s < best_t || (s == best_t && oid < best_oid)) {
-          best_t = s;
-          best_oid = oid;
-          best_idx = cid * K + k;
+  int best_idx = 0, best_pos = INT_MAX;
+  uint32_t parity = 0;
+  for (int stage = 0;;) {
+    mbar_wait(&sh.full[stage], parity);
+    const Visit v = sh.meta[stage];
+    if (v.flags & END) break;
+    if (v.flags & FIRST) {
+      const int r = v.b * RAYS + ray;
+      ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
+      dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
+      // the candidate bound stays the pass seed, never tightened: the
+      // inclusive <= keeps equal-t candidates for the (t, id) tie-break
+      cap = t0[r];
+      best_t = NO_HIT, best_oid = NO_ID, best_idx = 0, best_pos = INT_MAX;
+    }
+    const float(*tile)[K] = sh.tile[stage];
+#pragma unroll(4 / VEC)
+    for (int i = 0; i < GROUPS; ++i) {
+      const int k0 = (i * TPR + h) * VEC;
+      const Group g = load_group(tile, k0);
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        float s;
+        if (segment_test(g, l, ox, oy, oz, dx, dy, dz, cap, &s)) {
+          const int k = k0 + l;
+          const float oid = tile[9][k];
+          if (s < best_t || (s == best_t && oid < best_oid)) {
+            best_t = s;
+            best_oid = oid;
+            best_idx = v.cid * K + k;
+            best_pos = v.j * K + k;
+          }
         }
       }
     }
+    release(sh, stage);
+    if (v.flags & LAST) {
+      for (int m = 1; m < TPR; m <<= 1) {
+        const float t2 = __shfl_xor_sync(0xffffffffu, best_t, m);
+        const float o2 = __shfl_xor_sync(0xffffffffu, best_oid, m);
+        const int i2 = __shfl_xor_sync(0xffffffffu, best_idx, m);
+        const int p2 = __shfl_xor_sync(0xffffffffu, best_pos, m);
+        if (t2 < best_t || (t2 == best_t && (o2 < best_oid ||
+                                             (o2 == best_oid &&
+                                              p2 < best_pos)))) {
+          best_t = t2, best_oid = o2, best_idx = i2, best_pos = p2;
+        }
+      }
+      if (h == 0) {
+        const size_t slot = static_cast<size_t>(v.item) * RAYS + ray;
+        part_t[slot] = best_t;
+        part_oid[slot] = best_oid;
+        part_idx[slot] = best_idx;
+      }
+    }
+    if (++stage == STAGES) {
+      stage = 0;
+      parity ^= 1;
+    }
   }
-  // merge with the pass seeds (pass 1: none; pass 2: the prefix result)
+}
+
+// One thread per ray: fold the block's items in item order (the strict
+// minimum keeps the earlier item on a tie, as the sequential walk
+// does), then merge with the pass seeds (pass 1: none; pass 2: the
+// prefix result).
+__global__ void __launch_bounds__(RAYS)
+hit_merge_kernel(const int* __restrict__ prefix,
+                 const float* __restrict__ part_t,
+                 const float* __restrict__ part_oid,
+                 const int* __restrict__ part_idx,
+                 const float* __restrict__ t0, const int* __restrict__ i0,
+                 const float* __restrict__ oid0, float* __restrict__ t_out,
+                 int* __restrict__ idx_out, float* __restrict__ oid_out) {
+  const int b = blockIdx.x;
+  const int r = b * RAYS + threadIdx.x;
+  float best_t = NO_HIT, best_oid = NO_ID;
+  int best_idx = 0;
+  for (int q = b ? prefix[b - 1] : 0; q < prefix[b]; ++q) {
+    const size_t slot = static_cast<size_t>(q) * RAYS + threadIdx.x;
+    const float t = part_t[slot], oid = part_oid[slot];
+    if (t < best_t || (t == best_t && oid < best_oid)) {
+      best_t = t;
+      best_oid = oid;
+      best_idx = part_idx[slot];
+    }
+  }
   const float ts = t0[r], os = oid0[r];
   const bool has = best_t < NO_HIT;
-  const bool better =
-      best_t < ts || (has && best_t == ts && best_oid < os);
+  const bool better = best_t < ts || (has && best_t == ts && best_oid < os);
   t_out[r] = better ? best_t : ts;
   idx_out[r] = better ? best_idx : i0[r];
   oid_out[r] = better ? best_oid : os;
 }
 
-__global__ void __launch_bounds__(BLOCK)
-any_kernel(const float* __restrict__ o, const float* __restrict__ d,
-           const float* __restrict__ t_cap, const int* __restrict__ ids,
-           const int* __restrict__ counts, const float* __restrict__ tc,
-           int k_cap, int* __restrict__ occ_out, int* __restrict__ visits) {
-  __shared__ float tile[USED_ROWS][K];
-  const int b = blockIdx.x;
-  const int r = b * BLOCK + threadIdx.x;
-  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-  const float cap = t_cap[r];
-  const int n_hit = counts[b];
-  const bool use_all = n_hit > k_cap;
-  const int* ids_row = ids + static_cast<size_t>(b) * k_cap;
-
-  int occ = 0;
-  int visited = 0;
-  for (int i = 0; i < n_hit; ++i) {
-    // the block-wide barrier that ends the previous visit also guards
-    // this overwrite of the tile
-    stage_tile(tile, tc, cluster_at(ids_row, i, k_cap, use_all));
-    __syncthreads();
-    if (!occ) {
-      for (int k = 0; k < K; ++k) {
-        float s;
-        if (segment_test(tile, k, ox, oy, oz, dx, dy, dz, cap, &s)) {
-          occ = 1;
-          break;
+// Occlusion: occ[r] = 1 where some listed segment has T_MIN < s <=
+// t_cap[r]. occ is zero at launch; items only ever store 1.
+__global__ void __launch_bounds__(THREADS)
+any_kernel(Plan p, const float* __restrict__ o, const float* __restrict__ d,
+           const float* __restrict__ t_cap, int* occ, int* visits) {
+  __shared__ Shared sh;
+  init_ring(sh);
+  if (threadIdx.x >= CONSUMERS) {
+    if (threadIdx.x == CONSUMERS) produce<true>(sh, p, visits);
+    return;
+  }
+  const int ray = threadIdx.x / TPR, h = threadIdx.x % TPR;
+  const int leader = (threadIdx.x & 31) & ~(TPR - 1);
+  float ox = 0, oy = 0, oz = 0, dx = 0, dy = 0, dz = 0, cap = 0;
+  bool dark = false;
+  uint32_t parity = 0;
+  for (int stage = 0;;) {
+    mbar_wait(&sh.full[stage], parity);
+    const Visit v = sh.meta[stage];
+    if (v.flags & END) break;
+    const int r = v.b * RAYS + ray;
+    if (v.flags & FIRST) {
+      ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
+      dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
+      cap = t_cap[r];
+      dark = false;
+    }
+    // a flag another item set darkens the ray here too; the pair's
+    // leader reads it so that both threads agree
+    int seen = dark ? 0 : *static_cast<volatile int*>(occ + r);
+    seen = __shfl_sync(0xffffffffu, seen, leader);
+    if (seen) {
+      dark = true;
+      if (h == 0) atomicAdd(&sh.dark[v.slot], 1);
+    }
+    // occlusion is monotone: a dark ray skips the test, and the producer
+    // stops the item once its 128 rays are dark
+    int hit = 0;
+    if (!dark) {
+      const float(*tile)[K] = sh.tile[stage];
+      for (int i = 0; i < GROUPS && !hit; ++i) {
+        const Group g = load_group(tile, (i * TPR + h) * VEC);
+#pragma unroll
+        for (int l = 0; l < VEC; ++l) {
+          float s;
+          if (segment_test(g, l, ox, oy, oz, dx, dy, dz, cap, &s)) {
+            hit = 1;
+            break;
+          }
         }
       }
     }
-    visited = i + 1;
-    // occlusion is monotone, so stopping once the whole block is dark
-    // changes no result; the exit is uniform across the block
-    if (__syncthreads_and(occ)) break;
+    for (int m = 1; m < TPR; m <<= 1)
+      hit |= __shfl_xor_sync(0xffffffffu, hit, m);
+    if (hit) {
+      dark = true;
+      if (h == 0) {
+        occ[r] = 1;
+        atomicAdd(&sh.dark[v.slot], 1);
+      }
+    }
+    // the slot's count is final for this visit before the stage goes
+    // back to the producer
+    release(sh, stage);
+    if (++stage == STAGES) {
+      stage = 0;
+      parity ^= 1;
+    }
   }
-  occ_out[r] = occ;
-  if (visits != nullptr && threadIdx.x == 0) visits[b] = visited;
+}
+
+// CTAs of `kernel` that fit on the current device at once
+template <typename F>
+int persistent_grid(F kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  return sms * (per_sm > 0 ? per_sm : 1);
 }
 
 }  // namespace
 
+// scratch: one int, the item counter. partials: 2 x max_items x 128
+// floats and max_items x 128 ints, the per-item results.
 extern "C" int yhair_hit_pass(const float* o, const float* d,
                               const float* t0, const int* i0,
                               const float* oid0, const int* ids,
-                              const int* counts, const float* tc,
-                              int n_blocks, int k_cap, float* t_out,
-                              int* idx_out, float* oid_out, void* stream) {
-  hit_kernel<<<n_blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, t0, i0, oid0, ids, counts, tc, k_cap, t_out, idx_out, oid_out);
+                              const int* counts, const int* prefix,
+                              const float* tc, int n_blocks, int k_cap,
+                              int chunk, int max_items, int* scratch,
+                              float* partials, float* t_out, int* idx_out,
+                              float* oid_out, void* stream) {
+  if (n_blocks == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  static const int grid = persistent_grid(hit_kernel);
+  cudaMemsetAsync(scratch, 0, sizeof(int), s);
+  const size_t n_part = static_cast<size_t>(max_items) * RAYS;
+  float* part_t = partials;
+  float* part_oid = partials + n_part;
+  int* part_idx = reinterpret_cast<int*>(partials + 2 * n_part);
+  const Plan p{ids, counts, prefix, tc, scratch, n_blocks, k_cap, chunk};
+  hit_kernel<<<grid, THREADS, 0, s>>>(p, o, d, t0, part_t, part_oid,
+                                       part_idx);
+  hit_merge_kernel<<<n_blocks, RAYS, 0, s>>>(prefix, part_t, part_oid,
+                                             part_idx, t0, i0, oid0, t_out,
+                                             idx_out, oid_out);
   return static_cast<int>(cudaGetLastError());
 }
 
+// visits (optional, nb ints): the visits each block's items made, the
+// work this launch did (a parallel walk may exceed a sequential one's).
 extern "C" int yhair_any_pass(const float* o, const float* d,
                               const float* t_cap, const int* ids,
-                              const int* counts, const float* tc,
-                              int n_blocks, int k_cap, int* occ_out,
+                              const int* counts, const int* prefix,
+                              const float* tc, int n_blocks, int k_cap,
+                              int chunk, int* scratch, int* occ_out,
                               int* visits, void* stream) {
-  any_kernel<<<n_blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, t_cap, ids, counts, tc, k_cap, occ_out, visits);
+  if (n_blocks == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  static const int grid = persistent_grid(any_kernel);
+  cudaMemsetAsync(scratch, 0, sizeof(int), s);
+  cudaMemsetAsync(occ_out, 0, sizeof(int) * n_blocks * RAYS, s);
+  if (visits != nullptr)
+    cudaMemsetAsync(visits, 0, sizeof(int) * n_blocks, s);
+  const Plan p{ids, counts, prefix, tc, scratch, n_blocks, k_cap, chunk};
+  any_kernel<<<grid, THREADS, 0, s>>>(p, o, d, t_cap, occ_out, visits);
   return static_cast<int>(cudaGetLastError());
 }

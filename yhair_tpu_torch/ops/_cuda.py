@@ -60,8 +60,9 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.yhair_hit_pass.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p]
+    lib.yhair_hit_pass.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p,
+                                   p, p, p, p, p]
     lib.yhair_hit_pass.restype = i
-    lib.yhair_any_pass.argtypes = [p, p, p, p, p, p, i, i, p, p, p]
+    lib.yhair_any_pass.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p]
     lib.yhair_any_pass.restype = i
     return lib

@@ -4,8 +4,10 @@
 Phase 1 (torch ops): slab-test every ray against every cluster AABB,
 reduce to a per-128-ray-block cluster mask and sort each block's hit
 clusters front to back into an id list + count.
-Phase 2 (CUDA, ``csrc/intersect.cu``): each block walks its list and
-tests its rays against the listed clusters' segments.
+Phase 2 (CUDA, ``csrc/intersect.cu``): each list is cut into work items
+of CHUNK consecutive clusters (``_work_items``), which a persistent grid
+takes from a counter; an item tests its block's rays against its
+clusters' segments. The hit kernel merges a block's items in item order.
 
 Two searches share the segment test:
   * ``nearest_hit``: closest hit (t, segment index, hit mask);
@@ -37,6 +39,9 @@ MAX_IDS = 2048
 # front-to-back prefix lengths of the two-pass searches
 K_PREFIX = 64
 K_ANY_PREFIX = 16
+# clusters per work item of the kernels (chosen by timing the bench
+# strip's launches on an H100 at other values: PERF.md)
+CHUNK = 4
 # rays per phase-1 chunk: (chunk, C) temporaries of 32 MB at C = 1024
 RAY_CHUNK = 64 * BLOCK
 # CUDA kernel launches, added to by the wrappers only where they launch
@@ -118,6 +123,17 @@ def _pack_lists(ids, counts, k_cap, n_clusters):
     return ids, counts.to(torch.int32).contiguous()
 
 
+def _work_items(counts, chunk):
+    """The kernels' work items: block b's list of counts[b] visits (the
+    packed counts, C for the sentinel) is cut into ceil(counts[b] /
+    chunk) items of chunk consecutive positions. -> the inclusive prefix
+    sum of items per block, (nb,) int32; item q belongs to the first
+    block whose sum exceeds q."""
+    return torch.cumsum(torch.div(counts + (chunk - 1), chunk,
+                                  rounding_mode="floor"), 0,
+                        dtype=torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: plain versions of the kernels (same inputs, same arithmetic)
 
@@ -162,11 +178,20 @@ def hit_pass_plain(o, d, seeds, ids, counts, tc, k_cap):
     lexicographic min of (t, original id) over the block's listed
     clusters (candidates s <= the pass seed t), merged with the seeds.
     -> (t, idx = cid * 128 + lane, oid), each (N,)."""
+    best = _hit_best_plain(o, d, seeds[0], ids, counts, tc, k_cap)
+    return _merge_seeds(best, seeds)
+
+
+def _hit_best_plain(o, d, t_cap, ids, counts, tc, k_cap):
+    """The unseeded part of ``hit_pass_plain``: per ray the lexicographic
+    min of (t, original id) over the listed clusters, candidates
+    T_MIN < s <= t_cap; (INF, NO_ID) where there is none. Ties, which
+    only padding lanes can make, go to the earlier (position, lane).
+    -> (t, idx, oid), each (N,)."""
     n = o.shape[0]
     nb = n // BLOCK
-    t0, i0, oid0 = seeds
     ob, db = o.reshape(nb, BLOCK, 1, 3), d.reshape(nb, BLOCK, 1, 3)
-    t_seed = t0.reshape(nb, BLOCK, 1)
+    t_seed = t_cap.reshape(nb, BLOCK, 1)
     best_t = torch.full((nb, BLOCK), INF, dtype=o.dtype, device=o.device)
     best_oid = torch.full_like(best_t, NO_ID)
     best_idx = torch.zeros((nb, BLOCK), dtype=torch.int32, device=o.device)
@@ -185,8 +210,13 @@ def hit_pass_plain(o, d, seeds, ids, counts, tc, k_cap):
         best_oid = torch.where(better, oid_j, best_oid)
         idx_j = (cid[:, None] * BLOCK + lane_j).to(torch.int32)
         best_idx = torch.where(better, idx_j, best_idx)
-    best_t, best_oid, best_idx = (x.reshape(n) for x in (best_t, best_oid,
-                                                         best_idx))
+    return tuple(x.reshape(n) for x in (best_t, best_idx, best_oid))
+
+
+def _merge_seeds(best, seeds):
+    """The pass seeds merged into an unseeded result."""
+    best_t, best_idx, best_oid = best
+    t0, i0, oid0 = seeds
     has = best_t < INF
     better = (best_t < t0) | (has & (best_t == t0) & (best_oid < oid0))
     return (torch.where(better, best_t, t0),
@@ -194,18 +224,26 @@ def hit_pass_plain(o, d, seeds, ids, counts, tc, k_cap):
             torch.where(better, best_oid, oid0))
 
 
-def any_pass_plain(o, d, t_cap, ids, counts, tc, k_cap):
+def any_pass_plain(o, d, t_cap, ids, counts, tc, k_cap,
+                   return_visits=False):
     """Torch twin of the CUDA any kernel: 1 where some listed segment has
-    T_MIN < s <= t_cap, else 0. -> (N,) int32."""
+    T_MIN < s <= t_cap, else 0. -> (N,) int32.
+
+    return_visits: also return (nb,) int32, the visits a sequential
+    front-to-back walk of each block needs: up to and including the one
+    after which all its rays are dark (the work the bound counts)."""
     n = o.shape[0]
     nb = n // BLOCK
     ob, db = o.reshape(nb, BLOCK, 1, 3), d.reshape(nb, BLOCK, 1, 3)
     cap = t_cap.reshape(nb, BLOCK, 1)
     occ = torch.zeros((nb, BLOCK), dtype=torch.bool, device=o.device)
+    visits = torch.zeros(nb, dtype=torch.int32, device=o.device)
     for _, cid, valid in _visits(ids, counts, k_cap):
+        visits += (valid & ~occ.all(1)).to(torch.int32)
         ok, _ = _segment_test(ob, db, tc[cid][:, None], cap)
         occ = occ | (ok.any(-1) & valid[:, None])
-    return occ.reshape(n).to(torch.int32)
+    occ = occ.reshape(n).to(torch.int32)
+    return (occ, visits) if return_visits else occ
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +285,21 @@ def hit_pass(o, d, seeds, ids, counts, tc, k_cap):
     from . import _cuda
     lib = _cuda.library()
     n = o.shape[0]
+    prefix = _work_items(counts, CHUNK)
+    # per-item partials (t, oid, idx) for as many items as the packed
+    # counts allow (each <= max(k_cap, C)), sized without a host sync:
+    # 201 MB at the bench shapes, of which a launch writes under 5%
+    max_items = (n // BLOCK) * -(-max(k_cap, tc.shape[0]) // CHUNK)
+    partials = torch.empty(3 * max_items * BLOCK, dtype=torch.float32,
+                           device=o.device)
+    scratch = torch.empty(1, dtype=torch.int32, device=o.device)
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     idx = torch.empty(n, dtype=torch.int32, device=o.device)
     oid = torch.empty(n, dtype=torch.float32, device=o.device)
     err = lib.yhair_hit_pass(
         _ptr(o), _ptr(d), _ptr(t0), _ptr(i0), _ptr(oid0), _ptr(ids),
-        _ptr(counts), _ptr(tc), n // BLOCK, k_cap, _ptr(t), _ptr(idx),
+        _ptr(counts), _ptr(prefix), _ptr(tc), n // BLOCK, k_cap, CHUNK,
+        max_items, _ptr(scratch), _ptr(partials), _ptr(t), _ptr(idx),
         _ptr(oid), torch.cuda.current_stream(o.device).cuda_stream)
     if err:
         raise RuntimeError(f"hit kernel launch failed: CUDA error {err}")
@@ -264,8 +311,9 @@ def any_pass(o, d, t_cap, ids, counts, tc, k_cap, visits=None):
     """One occlusion pass (the TPU's ``any_hit.run_pass``).
 
     t_cap: (N,) f32. -> occ (N,) int32. visits: optional (nb,) int32
-    output of the clusters each block visited before its early exit (CUDA
-    only; used to count the work a run needed).
+    output of the clusters each block's work items visited before they
+    stopped (CUDA only: the work the launch did, which may exceed what a
+    sequential walk needs; ``any_pass_plain`` counts that).
     """
     ids, counts = _pack_lists(ids, counts, k_cap, tc.shape[0])
     if o.device.type == "cpu":
@@ -281,11 +329,13 @@ def any_pass(o, d, t_cap, ids, counts, tc, k_cap, visits=None):
     from . import _cuda
     lib = _cuda.library()
     n = o.shape[0]
+    prefix = _work_items(counts, CHUNK)
+    scratch = torch.empty(1, dtype=torch.int32, device=o.device)
     occ = torch.empty(n, dtype=torch.int32, device=o.device)
     err = lib.yhair_any_pass(
-        _ptr(o), _ptr(d), _ptr(t_cap), _ptr(ids), _ptr(counts), _ptr(tc),
-        n // BLOCK, k_cap, _ptr(occ),
-        None if visits is None else _ptr(visits),
+        _ptr(o), _ptr(d), _ptr(t_cap), _ptr(ids), _ptr(counts),
+        _ptr(prefix), _ptr(tc), n // BLOCK, k_cap, CHUNK, _ptr(scratch),
+        _ptr(occ), None if visits is None else _ptr(visits),
         torch.cuda.current_stream(o.device).cuda_stream)
     if err:
         raise RuntimeError(f"any kernel launch failed: CUDA error {err}")
