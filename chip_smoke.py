@@ -23,12 +23,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 3. main     the bench workload through ``apps.render.progressive_render``
             (512x512, 1 spp, depth 4, four strips), with the launch
             counts set to 0 just before and read just after.
-4. golden   ladder config 3 at its spec (256x256, 16 spp, depth 6, seed
+4. train    the training path. (a) bench.py's forward+backward: the
+            bench frame as four strips, each ``L.mean().backward()`` into
+            beta_m, beta_n and sigma_a leaves; one warm-up frame, then
+            one timed frame with the launch counts set to 0 just before
+            and read just after, and the peak device memory. (b) The
+            gradient check: one 65,536-ray strip at depth 1, where no
+            sampled direction is traced, so d L.mean() / d param must lie
+            within 2% of a central finite difference of the port's own
+            render for beta_m, beta_n and each sigma_a channel. (c) The
+            ``invert`` CLI, three steps on the full hairball at 512x512
+            with a 65,536-pixel batch: finite loss and gradients, every
+            param inside PARAM_BOUNDS and moved from its start.
+5. golden   ladder config 3 at its spec (256x256, 16 spp, depth 6, seed
             0) against ``goldens/config3_stats.json``.
 
 With --profile, a last phase traces one bench strip with torch.profiler
 and prints the device time of each layer: the cluster lists (torch ops),
-the two kernels, and the rest (camera, shading, sort, bookkeeping).
+the two kernels, and the rest (camera, shading, sort, bookkeeping); then
+one forward+backward strip, with the backward's device time (the
+autograd engine's functions) and the device's idle share.
 
 The line before the last is the ``kernels`` record, the last one
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -60,6 +74,9 @@ DEVICE_KERNELS = {"hit_kernel": ("hit_kernel", "hit_merge_kernel"),
 WIDTH = HEIGHT = 512
 SPP, DEPTH, STRIP = 1, 4, 65536
 GOLDEN_MEAN_RTOL, GOLDEN_P99_RTOL = 0.01, 0.03
+# bench.py differentiates with respect to these
+TRAIN_PARAMS = ("beta_m", "beta_n", "sigma_a")
+FD_EPS, FD_RTOL = 1e-3, 0.02
 
 
 def emit(**fields):
@@ -333,6 +350,151 @@ def phase_main(sc, cam, dev):
     return launches
 
 
+def trainable(sc):
+    """(scene with fresh leaves for TRAIN_PARAMS, the leaves)."""
+    from yhair_tpu_torch import convert
+
+    params = convert.params_from_numpy(
+        {k: getattr(sc.hair, k).cpu().numpy() for k in TRAIN_PARAMS},
+        device=sc.env.device)
+    return sc._replace(hair=sc.hair._replace(**params)), params
+
+
+def bench_fwdbwd(sc, cam, dev):
+    """bench.py's forward+backward: a warm-up frame, then a timed one."""
+    import torch
+
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+    from yhair_tpu_torch.parallel import mesh
+
+    scp, params = trainable(sc)
+    perm, _ = mesh.tile_pixel_permutation(WIDTH, HEIGHT)
+    pid_all = torch.as_tensor(perm, device=dev)
+    n_rays = WIDTH * HEIGHT * SPP
+
+    def frame():
+        for b in range(-(-n_rays // STRIP)):
+            pid = pid_all[b * STRIP:(b + 1) * STRIP]
+            L = mesh.trace_pixels(scp, cam, WIDTH, HEIGHT, pid,
+                                  torch.zeros_like(pid), mesh.key_seed(0),
+                                  DEPTH, device=dev)
+            L.mean().backward()
+
+    frame()
+    for p in params.values():
+        p.grad = None
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frame()
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = dict(ik.LAUNCHES)
+    grads = {k: p.grad.cpu() for k, p in params.items()}
+    require(all(n > 0 for n in launches.values()), "train",
+            f"a kernel was not launched in the forward+backward frame: "
+            f"{launches}")
+    require(all(bool(torch.isfinite(g).all() and (g != 0).all())
+                for g in grads.values()), "train",
+            f"forward+backward gradients not finite and non-zero: {grads}")
+    rays = n_rays * DEPTH * (1 + sc.n_lights)
+    return dict(fwdbwd_frame_s=frame_s, fwdbwd_mrays_s=rays / frame_s / 1e6,
+                fwdbwd_launches=launches,
+                peak_device_bytes=torch.cuda.max_memory_allocated(),
+                fwdbwd_grads={k: g.tolist() for k, g in grads.items()})
+
+
+def gradient_check(sc, cam, dev, width=WIDTH, height=HEIGHT,
+                   n_rays=STRIP):
+    """Depth-1 d L.mean() / d param against central finite differences of
+    the port's own render, on the uniforms of the first n_rays rays of
+    the tile order (``tests/test_torch_kernels_cuda.py`` calls it on a
+    small hairball)."""
+    import torch
+
+    from yhair_tpu_torch.parallel import mesh
+
+    perm, _ = mesh.tile_pixel_permutation(width, height)
+    pid = torch.as_tensor(perm[:n_rays], device=dev)
+
+    def loss(scene):
+        L = mesh.trace_pixels(scene, cam, width, height, pid,
+                              torch.zeros_like(pid), mesh.key_seed(0), 1,
+                              device=dev)
+        return L.double().mean()
+
+    scp, params = trainable(sc)
+    loss(scp).backward()
+    pairs = []
+    with torch.no_grad():
+        for k, p in params.items():
+            for c in range(p.numel()):
+                def at(delta):
+                    v = p.detach().clone()
+                    v.view(-1)[c] += delta
+                    s = sc._replace(hair=sc.hair._replace(**{k: v}))
+                    return float(loss(s)), float(v.view(-1)[c])
+                (lp, xp), (lm, xm) = at(FD_EPS), at(-FD_EPS)
+                fd = (lp - lm) / (xp - xm)
+                g = float(p.grad.view(-1)[c])
+                rel = abs(g - fd) / max(abs(fd), 1e-30)
+                pairs.append(dict(param=k if p.numel() == 1 else f"{k}[{c}]",
+                                  autograd=g, finite_difference=fd,
+                                  rel_err=rel))
+                require(fd != 0.0 and rel <= FD_RTOL, "train",
+                        f"gradient check failed: {pairs[-1]}")
+    return pairs
+
+
+def invert_steps(dev):
+    """Three steps of the invert CLI on the full hairball."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from yhair_tpu_torch.apps import invert
+    from yhair_tpu_torch.parallel import mesh
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(log):
+        res = invert.main(["--config", "3", "--resolution", str(WIDTH),
+                           "--spp", str(SPP), "--bounces", str(DEPTH),
+                           "--steps", "3", "--pixel-batch", str(STRIP),
+                           "--out", os.path.join(tmp, "recovered.json"),
+                           "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    require(bool(np.isfinite(res["final_loss"])), "train",
+            f"invert loss not finite: {res['final_loss']}")
+    for k, v in res["recovered"].items():
+        v, g = np.asarray(v), np.asarray(res["final_grads"][k])
+        start = np.float32(np.asarray(res["true"][k]) * 1.8)
+        lo, hi = mesh.PARAM_BOUNDS[k]
+        require(bool(np.isfinite(g).all() and (g != 0).all()), "train",
+                f"invert gradient of {k} not finite and non-zero: {g}")
+        require(bool(((v >= lo) & (v <= hi)).all()), "train",
+                f"invert left {k} outside {(lo, hi)}: {v}")
+        require(bool((v != start).all()), "train",
+                f"invert did not move {k} from {start}")
+    return dict(invert_seconds=seconds, invert_final_loss=res["final_loss"],
+                invert_recovered=res["recovered"], invert_true=res["true"],
+                invert_log=log.getvalue().splitlines())
+
+
+def phase_train(sc, cam, dev):
+    fields = bench_fwdbwd(sc, cam, dev)
+    fields["gradient_check"] = gradient_check(sc, cam, dev)
+    fields.update(invert_steps(dev))
+    emit(phase="train", ok=True, width=WIDTH, height=HEIGHT, spp=SPP,
+         depth=DEPTH, strips=-(-WIDTH * HEIGHT * SPP // STRIP),
+         fd_eps=FD_EPS, fd_rtol=FD_RTOL, **fields)
+
+
 def phase_golden(sc, cam, dev):
     import numpy as np
 
@@ -429,6 +591,42 @@ def phase_profile(sc, cam, dev, top=12):
                              for e in kernels[:top]])
     require(device_ms > 0, "profile", "the profiler saw no device time")
 
+    # one forward+backward strip: the backward is every function the
+    # autograd engine evaluates
+    scp, _ = trainable(sc)
+
+    def train_strip():
+        mesh.trace_pixels(scp, cam, WIDTH, HEIGHT, pid, torch.zeros_like(pid),
+                          mesh.key_seed(0), DEPTH, device=dev).mean().backward()
+        torch.cuda.synchronize()
+
+    train_strip()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_strip()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_strip()
+    avg = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in avg
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    backward_ms = sum(e.device_time_total for e in avg
+                      if e.device_type == DeviceType.CPU and e.key.startswith(
+                          "autograd::engine::evaluate_function:")) / 1e3
+    emit(phase="profile_fwdbwd", ok=device_ms > 0, strip_rays=STRIP,
+         depth=DEPTH, wall_ms=wall_ms, device_ms=device_ms,
+         backward_device_ms=backward_ms,
+         forward_device_ms=device_ms - backward_ms,
+         device_idle_frac=1.0 - device_ms / wall_ms,
+         peak_device_bytes=peak,
+         autograd_functions=sum(
+             e.count for e in avg if e.device_type == DeviceType.CPU
+             and e.key.startswith("autograd::engine::evaluate_function:")))
+    require(device_ms > 0 and backward_ms > 0, "profile_fwdbwd",
+            "the profiler saw no backward device time")
+
 
 def kernel_record(name, replaces, st, launches):
     return {"name": name, "route": "cuda",
@@ -475,6 +673,7 @@ def main(argv=None):
     launches = phase_main(sc, cam, dev)
     if args.stop_after == "main":
         return 0
+    phase_train(sc, cam, dev)
     phase_golden(sc, cam, dev)
     if args.profile:
         phase_profile(sc, cam, dev)

@@ -220,3 +220,26 @@ def test_any_every_block_or_no_block_goes_dark(big_clusters, cuda, dark):
     else:
         assert not bool(occ.any())
         assert torch.equal(need, counts) and torch.equal(visits, counts)
+
+
+def test_depth1_gradients_match_finite_differences(cuda):
+    """The training path on the card: at depth 1 no sampled direction is
+    traced, so d L.mean() / d param of a 4,096-ray strip (through both
+    kernels) lies within 2% of a central finite difference of the same
+    render, for beta_m, beta_n and each sigma_a channel
+    (``chip_smoke.gradient_check``, which fails the run past 2%)."""
+    import chip_smoke
+
+    scene_d, cam_d = gen.curly_hairball(n_strands=300, n_seg=8)
+    sc, _ = build_scene_clusters(tscene.from_dict(scene_d, device=cuda),
+                                 device=cuda)
+    cam = tscene.camera_from_dict(cam_d, device=cuda)
+    before = dict(ik.LAUNCHES)
+    pairs = chip_smoke.gradient_check(sc, cam, cuda, width=64, height=64,
+                                      n_rays=4096)
+    assert all(ik.LAUNCHES[k] > before[k] for k in before)
+    assert [p["param"] for p in pairs] == [
+        "beta_m", "beta_n", "sigma_a[0]", "sigma_a[1]", "sigma_a[2]"]
+    for p in pairs:
+        assert abs(p["finite_difference"]) > 1e-4, p
+        assert p["rel_err"] <= chip_smoke.FD_RTOL, p

@@ -25,6 +25,7 @@ from yhair_tpu.core import scene as jscene
 from yhair_tpu.integrator import path as jpath
 from yhair_tpu.ops import build_scene_clusters as jbuild_scene_clusters
 from yhair_tpu_torch import convert
+from yhair_tpu_torch.apps import invert
 from yhair_tpu_torch.apps import render as app
 from yhair_tpu_torch.core import scene as tscene
 from yhair_tpu_torch.core.rng import n_uniform_dims
@@ -32,6 +33,7 @@ from yhair_tpu_torch.device import resolve_device
 from yhair_tpu_torch.integrator import path as tpath
 from yhair_tpu_torch.ops import build_scene_clusters
 from yhair_tpu_torch.ops import intersect_kernel as ik
+from yhair_tpu_torch.parallel import mesh
 
 torch.set_num_threads(1)
 
@@ -120,7 +122,6 @@ def test_render_cli_writes_pfm(tmp_path):
 def test_progressive_render_matches_reference_uniforms(hairball):
     """The tile-permuted strips use the reference's counter-hash uniforms:
     the progressive image equals ``render`` on those uniforms."""
-    from yhair_tpu_torch.parallel import mesh
     _, _, sc2, cam = hairball
     img = app.progressive_render(sc2, cam, RES, RES, SPP, DEPTH, seed=3,
                                  max_rays_per_call=128, log=None,
@@ -147,6 +148,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(hairball):
         lambda: app.progressive_render(sc2, cam, RES, RES, 1, DEPTH,
                                        log=None),
         lambda: app.main(["--config", "1", "--output", "unused.npy"]),
+        lambda: mesh.train_step_fn(RES, RES, 1, DEPTH),
+        lambda: invert.main(["--config", "1", "--out", "unused.json"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -42,11 +42,13 @@ def load_pfm(path):
     return np.flipud(img).astype(np.float64)
 
 
+@torch.no_grad()
 def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
                        max_rays_per_call=65536, return_alive=False,
                        log=print, device=None):
     """Render spp samples, one per pass, each pass in equal tile-aligned
     strips of at most max_rays_per_call rays; accumulate in float64.
+    No graph is kept, even for a scene with trainable leaves.
 
     -> (H, W, 3) numpy image; with return_alive also the totals of
     (alive bounce rays, live shadow rays) over every strip.

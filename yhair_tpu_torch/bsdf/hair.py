@@ -1,11 +1,12 @@
 """pbrt-v3 hair scattering model: eval / sample / pdf
 (``yhair_tpu/bsdf/hair.py``).
 
-Forward values only in this slice. The reference routes square roots,
-arcsines, the strand offset h and atan2 through gradient gates
-(``_safe_sqrt``, ``_safe_asin``, ``_grad_interior``, the guarded atan2);
-their values are kept here bit for bit, and their gradient gates come
-with the training slice as ``torch.autograd.Function``s.
+Differentiable with respect to sigma_a, beta_m, beta_n and alpha. Square
+roots, arcsines, the strand offset h and atan2 go through the
+reference's gradient gates (``_safe_sqrt``, ``_safe_asin``,
+``_grad_interior``, the guarded atan2 in ``_angles``): the values are
+the plain forms' bit for bit, and the gradient is zero and finite where
+the plain form's derivative is infinite.
 
 Convention (pbrt's): local frame x = strand tangent, sin(theta) = w.x,
 phi = atan2(w.z, w.y); ``f`` carries a 1/|wi.z| factor which the
@@ -51,25 +52,27 @@ class HairMaterial(NamedTuple):
 
 
 def _safe_sqrt(x):
-    """sqrt(max(x, 0)); the reference's value on both sides of its gate."""
+    """sqrt(max(x, 0)); the gradient is 0 where x <= 1e-12 (sqrt'(0) is
+    infinite)."""
     return torch.where(x > 1e-12, torch.sqrt(torch.clamp(x, min=1e-12)),
-                       torch.sqrt(torch.clamp(x, min=0.0)))
+                       torch.sqrt(torch.clamp(x, min=0.0)).detach())
 
 
 def _safe_asin(x):
-    """arcsin(clip(x, -1, 1)); the reference's value inside and outside
-    its 1e-6 gradient band."""
+    """arcsin(clip(x, -1, 1)); the gradient is 0 in the outermost 1e-6
+    band (asin'(1) is infinite)."""
     lim = 1.0 - 1e-6
     return torch.where((x > -lim) & (x < lim),
                        torch.asin(torch.clamp(x, -lim, lim)),
-                       torch.asin(torch.clamp(x, -1.0, 1.0)))
+                       torch.asin(torch.clamp(x, -1.0, 1.0)).detach())
 
 
 def _grad_interior(x, lim=1.0 - 1e-3):
-    """Identity in value: clip(x) + (x - clip(x)), as the reference
-    computes it (its gradient gate stops the second term)."""
+    """Identity in value; the gradient is 0 where |x| >= lim, the
+    strand's outermost edge, where asin(h) and sqrt(1 - h^2) have
+    infinite derivatives."""
     xc = torch.clamp(x, -lim, lim)
-    return xc + (x - xc)
+    return xc + (x - xc).detach()
 
 
 def _i0(x):
@@ -242,7 +245,8 @@ def _angles(w):
     cos_t = _safe_sqrt(1.0 - sin_t * sin_t)
     y, z = w[..., 1], w[..., 2]
     # the reference's guarded atan2: atan2(0, 1) == atan2(0, 0) == 0, so
-    # the substitution keeps every value
+    # the substitution keeps every value, and atan2's gradient, NaN at
+    # (0, 0), is zero there (miss lanes have a zero shading frame)
     safe = (y * y + z * z) > 1e-18
     phi = torch.atan2(torch.where(safe, z, torch.zeros_like(z)),
                       torch.where(safe, y, torch.ones_like(y)))

@@ -1,8 +1,9 @@
 """Hand the reference's scene state to the port.
 
-The tests turn a ``yhair_tpu`` Scene or Clusters into numpy arrays
-(``{name: np.asarray(leaf)}``, see ``flat_fields``) and build the port's
-counterpart from them here, so both packages compute on the same arrays.
+The tests turn a ``yhair_tpu`` Scene, Clusters or parameter dict into
+numpy arrays (``{name: np.asarray(leaf)}``, see ``flat_fields``) and
+build the port's counterpart from them here, so both packages compute on
+the same arrays.
 Names are the reference's field paths joined with dots ("segments.p0",
 "hair.beta_m", "accel.tc", ...); static ints ("accel.n_clusters") stay
 ints. This module imports no JAX: ``np.asarray`` reads any array.
@@ -84,3 +85,12 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
         pln_point=t("pln_point"), pln_normal=t("pln_normal"),
         light_pos=t("light_pos"), light_intensity=t("light_intensity"),
         env=t("env"), accel=accel)
+
+
+def params_from_numpy(arrays: dict, device=None) -> dict:
+    """{name: float32 leaf tensor with requires_grad} from {name: array},
+    e.g. the reference's hair parameters (``{"beta_m": ..., ...}``)."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), device=dev,
+                            requires_grad=True)
+            for k, v in arrays.items()}

@@ -1,7 +1,10 @@
-"""Normalisation with the reference's values (``yhair_tpu/core/safemath.py``).
+"""Gradient-gated primitives (``yhair_tpu/core/safemath.py``).
 
-Forward values only: the gradient gate of the reference (zero gradient
-where ||v|| <= eps) comes with the training slice.
+Values are those of the plain forms; only the gradient is zeroed on the
+degenerate set, where the plain form's derivative is inf or NaN and
+``torch.where`` would turn it into NaN (its backward multiplies the
+unselected branch's derivative by 0). Each gate is a ``.detach()`` of the
+sub-expression the reference wraps in ``jax.lax.stop_gradient``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ def sqrt_rn(x):
 
 
 def safe_normalize(v, eps=1e-12):
-    """v / ||v|| where ||v|| > eps, else v / eps, along the last axis."""
+    """v / ||v|| where ||v|| > eps, else v / eps, along the last axis;
+    the gradient is zero where ||v|| <= eps."""
     n2 = (v * v).sum(-1, keepdim=True)
     safe = n2 > eps * eps
     n = torch.sqrt(torch.where(safe, n2, torch.ones_like(n2)))
-    return torch.where(safe, v / n, v * (1.0 / eps))
+    return torch.where(safe, v / n, v.detach() * (1.0 / eps))

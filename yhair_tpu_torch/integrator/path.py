@@ -1,4 +1,4 @@
-"""Wavefront path tracer, forward (``yhair_tpu/integrator/path.py``).
+"""Wavefront path tracer (``yhair_tpu/integrator/path.py``).
 
 Camera rays -> bounce loop { intersect -> environment on miss -> direct
 lighting from point lights with shadow rays -> BSDF sample -> Russian
@@ -8,10 +8,16 @@ layout and matches ``yhair_tpu``'s ``trace`` with ``sampler="path"`` on
 scenes of hair segments, spheres, planes, point lights and a constant
 environment.
 
-The hit search is discrete; the winner's t is then recomputed with the
-closed form ``_closest_approach`` (``where(hit, s_re, t)``), as the
-reference does for its gradients. On the card the CUDA kernels' t is
-bit-equal to that recompute, which is what keeps the two in step.
+The hit search is discrete and runs on detached rays; the winner's t is
+then recomputed with the closed form ``_closest_approach``
+(``where(hit, s_re, t)``), so no kernel needs a backward. On the card
+the CUDA kernels' t is bit-equal to that recompute, which is what keeps
+the two in step.
+
+Gradients (with respect to the hair parameters) use detached sampling,
+as the reference does: sampled directions, their pdf and Russian
+roulette's continuation probability are detached, and the throughput
+f |cos| / pdf carries the gradient.
 """
 
 from __future__ import annotations
@@ -69,7 +75,9 @@ def _permuted(fn, perm, *args):
 
 def _nearest(scene: Scene, o, d, chunk, perm=None):
     """Segment search: the cluster kernels through scene.accel, else the
-    brute-force scan."""
+    brute-force scan. The search is a discrete argmin: it sees detached
+    rays."""
+    o, d = o.detach(), d.detach()
     if isinstance(scene.accel, Clusters):
         fn = ik.make_nearest_fn(scene.accel, device=o.device)
     else:
@@ -107,9 +115,10 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
     """Closest hit over hair segments, spheres and planes."""
     n = o.shape[0]
     t_seg, idx, hit_seg = _nearest(scene, o, d, chunk, perm)
+    t_seg, idx = t_seg.detach(), idx.detach()
     segs = scene.segments
-    # the search is discrete: recompute the winner's t in closed form
-    # (bit-equal to the CUDA kernels' t on the card)
+    # the search is discrete: recompute the winner's t in closed form,
+    # differentiably (bit-equal to the CUDA kernels' t on the card)
     s_re, _, _ = seg._closest_approach(o, d, segs.p0[idx], segs.p1[idx])
     t_seg = torch.where(hit_seg, s_re, t_seg)
 
@@ -154,7 +163,9 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
 
 
 def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
-    """Shadow rays: True where something lies before dist * (1 - 1e-4)."""
+    """Shadow rays: True where something lies before dist * (1 - 1e-4).
+    Occlusion is boolean, so its inputs are detached."""
+    o, d, dist = o.detach(), d.detach(), dist.detach()
     limit = dist * (1.0 - 1e-4)
     if isinstance(scene.accel, Clusters):
         occ = _permuted(ik.make_occluded_fn(scene.accel, device=o.device),
@@ -200,7 +211,7 @@ def _sort_bounds(scene: Scene):
     """Box of the real segments for the Morton sort. The cluster padding
     segments (at 1e8) are left out: the reference's bounds include them,
     which collapses every origin into Morton cell 0 (octant-only sort)."""
-    p0, p1 = scene.segments.p0, scene.segments.p1
+    p0, p1 = scene.segments.p0.detach(), scene.segments.p1.detach()
     if isinstance(scene.accel, Clusters):
         real = scene.accel.seg_index >= 0
         p0, p1 = p0[real], p1[real]
@@ -298,9 +309,11 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
                 dist[:, None] ** 2, min=1e-12)
             L = L + torch.where((alive & vis)[:, None], contrib, 0.0)
 
-        # BSDF sampling
-        wi_h = th.hair_sample_wi(hctx, ub[:, :4])
+        # BSDF sampling: the direction and its pdf are detached, f
+        # carries the gradient
+        wi_h = th.hair_sample_wi(hctx, ub[:, :4]).detach()
         f_h, pdf_h = th.hair_f_pdf_ctx(hctx, wi_h)
+        pdf_h = pdf_h.detach()
         w_hair = f_h * torch.abs(wi_h[:, 2:3]) / torch.clamp(
             pdf_h[:, None], min=1e-12)
         w_hair = torch.where((pdf_h > 1e-12)[:, None], w_hair, 0.0)
@@ -312,11 +325,12 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
         o = pos + d * ray_eps[:, None]
         alive = alive & (torch.abs(beta).amax(-1) > 0)
         if depth >= RR_START:   # Russian roulette
-            p_cont = torch.clamp(beta.amax(-1), 0.05, 1.0)
+            p_cont = torch.clamp(beta.detach().amax(-1), 0.05, 1.0)
             alive = alive & ~(ub[:, 4] > p_cont)
             beta = beta / p_cont[:, None]
         if sort_rays and depth + 1 < max_depth:
-            perm = _ray_sort_perm(o, d, alive, sort_lo, sort_inv)
+            perm = _ray_sort_perm(o.detach(), d.detach(), alive, sort_lo,
+                                  sort_inv)
     if return_alive:
         return L, (torch.stack(n_alive), torch.stack(n_shadow))
     return L

@@ -1,10 +1,14 @@
-"""Counter-hash uniforms and the tile pixel order
+"""Rendering and inverse-rendering steps on one card
 (``yhair_tpu/parallel/mesh.py``).
 
-The reference shards the ray batch over a device mesh; this slice runs
-on one card, so only the parts the render path needs are here: the
-screen-tile pixel permutation and the per-(pixel, sample, dim) hash that
-makes a render reproducible whatever the batching.
+The reference shards the ray batch over a device mesh; the port runs on
+one card, so what is here is the screen-tile pixel permutation, the
+per-(pixel, sample, dim) hash that makes a render reproducible whatever
+the batching, ``train_step_fn`` without a mesh, and ``PARAM_BOUNDS``.
+A training step traces its rays in tile-order strips of at most
+``MAX_RAYS_PER_STRIP`` rays, which bounds the memory a strip's autograd
+graph holds. The reference's ``render_fn`` is
+``apps.render.progressive_render`` here.
 
 torch has no unsigned 32-bit shift or add on every device, so the hash is
 done in int64 and cut back to 32 bits after every operation; the result
@@ -17,9 +21,24 @@ import numpy as np
 import torch
 
 from ..core.rng import n_uniform_dims
+from ..device import resolve_device
 
 TILE_W, TILE_H = 16, 8
 _M32 = 0xFFFFFFFF
+# rays a training strip traces in one batch: a 512x512 1-spp frame is
+# four strips, as bench.py traces it
+MAX_RAYS_PER_STRIP = 65536
+
+# valid ranges of the physical hair parameters: gradient steps must not
+# leave the model's domain (the beta^20 terms explode past 1; negative
+# absorption is meaningless); applied after every optimizer update
+PARAM_BOUNDS = {
+    "beta_m": (1e-3, 1.0),
+    "beta_n": (1e-3, 1.0),
+    "alpha": (0.0, 0.2),
+    "sigma_a": (0.0, 20.0),
+    "eta": (1.0, 2.0),
+}
 
 
 def tile_pixel_permutation(width, height, tile_w=TILE_W, tile_h=TILE_H):
@@ -79,7 +98,6 @@ def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
     """Trace one flat batch of (pixel, sample) rays -> (B, 3) radiance
     (the reference's ``_trace_pixels``)."""
     from ..core.camera import camera_rays
-    from ..device import resolve_device
     from ..integrator import path
 
     dev = resolve_device(device)
@@ -90,3 +108,106 @@ def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
     o, d = camera_rays(cam.to(dev), width, height, i, j, u[:, :4])
     return path.trace(scene, o, d, u, max_depth=max_depth, chunk=chunk,
                       return_alive=return_alive, device=dev)
+
+
+def pixel_strips(n_pixels, spp):
+    """Slices of a pixel list, each traced as one batch of at most
+    ``MAX_RAYS_PER_STRIP`` rays. A pixel's spp rays are contiguous, so a
+    strip holds whole pixels, and a strip of a tile or more holds whole
+    16x8 tiles of the tile order."""
+    px = max(1, MAX_RAYS_PER_STRIP // spp)
+    if px >= TILE_W * TILE_H:
+        px -= px % (TILE_W * TILE_H)
+    return [slice(a, min(a + px, n_pixels)) for a in range(0, n_pixels, px)]
+
+
+def pixel_means(scene, cam, width, height, pixels, spp, seed_word,
+                max_depth, chunk=2048, device=None):
+    """(P, 3) mean of each pixel's spp samples, its rays traced
+    contiguously in one batch."""
+    dev = resolve_device(device)
+    pixels = pixels.to(dev)
+    pid = pixels.repeat_interleave(spp)
+    sid = torch.arange(spp, device=dev).repeat(pixels.shape[0])
+    L = trace_pixels(scene, cam, width, height, pid, sid, seed_word,
+                     max_depth, chunk=chunk, device=dev)
+    return L.reshape(-1, spp, 3).mean(1)
+
+
+def draw_tiles(n_tiles, k, generator):
+    """k distinct tile indices in [0, n_tiles), drawn without
+    replacement from ``generator`` (a CPU ``torch.Generator``)."""
+    return torch.randperm(n_tiles, generator=generator)[:k]
+
+
+def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
+                  pixel_batch=None, device=None):
+    """Build an inverse-rendering step:
+    step(params, opt, scene, cam, target, seed_word, generator=None)
+        -> (loss, grads)
+
+    params: {name: leaf tensor with requires_grad} of ``HairMaterial``
+    fields, which replace the scene's; opt: a ``torch.optim`` optimizer
+    over those leaves (``torch.optim.Adam(lr)`` is optax's ``adam(lr)``);
+    target: (H, W, 3). The loss is the mean squared error of the pixel
+    means against the target. Each strip calls ``backward`` on its share
+    of the loss, so the gradients accumulate to the whole batch's (up to
+    f32 summation order). Then, in the reference's order: non-finite
+    gradient entries become 0, ``opt.step()``, and each param is clamped
+    in place to ``PARAM_BOUNDS``. Returns the loss and the (sanitized)
+    gradients.
+
+    pixel_batch: each step traces that many pixels, whole 16x8 tiles
+    drawn without replacement from ``generator`` by ``draw_tiles``, and
+    descends on their MSE, an unbiased estimate of the image's. It must
+    be a multiple of 128 that the image holds, and the image must hold
+    whole tiles.
+    """
+    dev = resolve_device(device)
+    tile_px = TILE_W * TILE_H
+    if pixel_batch is not None and (
+            pixel_batch % tile_px or (width * height) % tile_px
+            or pixel_batch > width * height):
+        raise ValueError(f"pixel_batch must be a multiple of {tile_px} "
+                         f"and tile the image")
+    perm, _ = tile_pixel_permutation(width, height)
+    all_pixels = torch.as_tensor(perm, device=dev)
+
+    def step(params, opt, scene, cam, target, seed_word, generator=None):
+        if pixel_batch is None:
+            pixels = all_pixels
+        else:
+            if generator is None:
+                raise ValueError("pixel_batch draws its tiles from a "
+                                 "generator: pass one")
+            tiles = draw_tiles(all_pixels.numel() // tile_px,
+                               pixel_batch // tile_px, generator)
+            pixels = all_pixels.reshape(-1, tile_px)[tiles.to(dev)]
+            pixels = pixels.reshape(-1)
+        sc = scene._replace(hair=scene.hair._replace(**params))
+        tgt = target.to(dev).reshape(-1, 3)
+        n = pixels.numel() * 3
+        for p in params.values():
+            p.grad = None
+        loss = torch.zeros((), device=dev)
+        for sl in pixel_strips(pixels.numel(), spp):
+            img = pixel_means(sc, cam, width, height, pixels[sl], spp,
+                              seed_word, max_depth, chunk, dev)
+            part = ((img - tgt[pixels[sl]]) ** 2).sum() / n
+            part.backward()
+            loss = loss + part.detach()
+        grads = {}
+        for k, p in params.items():
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            # one degenerate sample must not poison Adam's moments
+            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            p.grad = g
+            grads[k] = g.clone()
+        opt.step()
+        with torch.no_grad():
+            for k, p in params.items():
+                if k in PARAM_BOUNDS:
+                    p.clamp_(*PARAM_BOUNDS[k])
+        return loss, grads
+
+    return step
