@@ -243,3 +243,70 @@ def test_depth1_gradients_match_finite_differences(cuda):
     for p in pairs:
         assert abs(p["finite_difference"]) > 1e-4, p
         assert p["rel_err"] <= chip_smoke.FD_RTOL, p
+
+
+@pytest.fixture(scope="module")
+def config5_clusters():
+    """Config 5's clusters at full size: 300,000 segments in C = 4,096
+    clusters (a power of two), more than MAX_IDS = 2,048 list slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    scene_d, _ = gen.furry_bunny()
+    _, cl = build_scene_clusters(tscene.from_dict(scene_d, device="cpu"),
+                                 device="cpu")
+    assert cl.n_clusters > ik.MAX_IDS
+    return cl
+
+
+@pytest.mark.parametrize("kind", ["hit", "any"])
+def test_sentinel_past_max_ids(config5_clusters, cuda, kind):
+    """C > MAX_IDS: block 0 lists every cluster, more than the k_cap =
+    MAX_IDS slots, so it goes as the "scan every cluster" sentinel; the
+    other blocks keep their front-to-back lists. Shadow rays to the
+    environment carry t_max = 1e30."""
+    cl = config5_clusters
+    c, k_cap = cl.n_clusters, ik._k_cap(cl.n_clusters)
+    assert k_cap == ik.MAX_IDS < c
+    rng = np.random.default_rng(24)
+    o = rng.normal(size=(512, 3)) * 0.6
+    d = rng.normal(size=(512, 3)) * 0.05 - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = torch.as_tensor(o, dtype=torch.float32)
+    d = torch.as_tensor(d, dtype=torch.float32)
+    t_max = torch.full((512,), 1e30)
+    ids, counts = ik._block_cluster_lists(o, d, cl, t_max=t_max)
+    ids[0] = torch.as_tensor(rng.permutation(c), dtype=torch.int32)
+    counts[0] = c
+    o, d, t_max, ids, counts = (x.to(cuda) for x in (o, d, t_max, ids,
+                                                     counts))
+    tc = cl.tc.to(cuda)
+    if kind == "hit":
+        got = _check_hit(o, d, _no_seeds(512, cuda), ids, counts, tc, k_cap)
+        assert (got[0][:128] < ik.INF).sum() > 10
+    else:
+        got, _, need = _check_any(o, d, t_max, ids, counts, tc, k_cap)
+        assert got[:128].sum() > 10 and int(need[0]) > 0
+
+
+def test_config5_gradients_match_the_cpu(cuda):
+    """The small config 5's gradients through both kernels at depth 2 on
+    a 16x16 window at the image centre, against the same rays on the CPU
+    (plain kernels): within ``chip_smoke.GRAD5_RTOL``, finite and
+    non-zero (``chip_smoke.device_gradient_check``, which fails the run
+    past it)."""
+    import chip_smoke
+    from oracle.envmap import gradient_sky
+
+    scene_d, cam_d = gen.furry_bunny(n_strands=200, subdiv=1)
+    scene_d = dict(scene_d, env_map=gradient_sky(h=16, w=32))
+    sc, _ = build_scene_clusters(tscene.from_dict(scene_d, device=cuda),
+                                 device=cuda)
+    cam = tscene.camera_from_dict(cam_d, device=cuda)
+    before = dict(ik.LAUNCHES)
+    pairs = chip_smoke.device_gradient_check(sc, cam, cuda, width=64,
+                                             height=64, window=16, depth=2)
+    assert all(ik.LAUNCHES[k] > before[k] for k in before)
+    assert [p["param"] for p in pairs] == [
+        "beta_m", "beta_n", "sigma_a[0]", "sigma_a[1]", "sigma_a[2]"]
+    for p in pairs:
+        assert p["cpu"] != 0 and p["rel_err"] <= chip_smoke.GRAD5_RTOL, p

@@ -156,25 +156,58 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(hairball):
             call()
 
 
-@pytest.mark.parametrize("feature", [
-    "meshes", "env_map", "textures", "curves", "hair_materials",
-    "emissive sphere", "textured material"])
+@pytest.mark.parametrize("feature", ["curves", "hair_materials"])
 def test_from_dict_refuses_unsupported_features(hairball, feature):
     scene_d = dict(hairball[0])
     extra = {
-        "meshes": {"meshes": [{"vertices": np.zeros((3, 3)),
-                               "faces": np.array([[0, 1, 2]])}]},
-        "env_map": {"env_map": np.ones((4, 8, 3))},
-        "textures": {"textures": [{"data": np.ones((2, 2, 3))}]},
         "curves": {"curves": {"cp": np.zeros((1, 4, 3))}},
         "hair_materials": {"hair_materials": [scene_d["hair_material"]]},
-        "emissive sphere": {"spheres": [{
-            "center": [0.0, 0.0, 0.0], "radius": 0.2,
-            "material": {"emission": [1.0, 1.0, 1.0]}}]},
-        "textured material": {"spheres": [{
-            "center": [0.0, 0.0, 0.0], "radius": 0.2,
-            "material": {"color": [0.5, 0.5, 0.5], "color_tex": 0}}]},
     }[feature]
     scene_d.update(extra)
     with pytest.raises(NotImplementedError):
         tscene.from_dict(scene_d, device="cpu")
+
+
+def _backdrop(material):
+    """A 3x3 quad behind the hairball, with texcoords."""
+    return {"positions": np.array([[-1.5, -1.5, -0.8], [1.5, -1.5, -0.8],
+                                   [1.5, 1.5, -0.8], [-1.5, 1.5, -0.8]]),
+            "triangles": np.array([[0, 1, 2], [0, 2, 3]]),
+            "texcoords": np.array([[0, 0], [1, 0], [1, 1], [0, 1.0]]),
+            "material": material}
+
+
+@pytest.mark.parametrize("feature", [
+    "meshes", "env_map", "textures", "emissive sphere", "textured material"])
+def test_from_dict_renders_ported_features(hairball, feature):
+    """The features the port once refused render like the eager
+    reference (same tolerance as ``test_render_matches_reference``)."""
+    scene_d, cam_d = dict(hairball[0]), hairball[1]
+    tex = [{"data": np.random.default_rng(1).random((4, 6, 3))}]
+    extra = {
+        "meshes": {"meshes": [_backdrop({"color": [0.4, 0.5, 0.6]})]},
+        "env_map": {"env_map": np.random.default_rng(2).random((4, 8, 3))},
+        "textures": {"textures": tex, "meshes": [_backdrop(
+            {"color": [0.9, 0.9, 0.9], "color_tex": 0})]},
+        "emissive sphere": {"spheres": [{
+            "center": [0.0, 0.0, 0.0], "radius": 0.2,
+            "material": {"emission": [1.0, 1.0, 1.0]}}]},
+        "textured material": {"textures": tex, "spheres": [{
+            "center": [0.0, 0.0, 0.0], "radius": 0.2,
+            "material": {"color": [0.5, 0.5, 0.5], "color_tex": 0}}]},
+    }[feature]
+    scene_d.update(extra)
+    sc2, _ = build_scene_clusters(tscene.from_dict(scene_d, device="cpu"),
+                                  device="cpu")
+    u = _uniforms(4)
+    with jax.disable_jit():
+        want = np.asarray(jpath.render(
+            jscene.from_dict(scene_d), jscene.camera_from_dict(cam_d),
+            jnp.asarray(u), max_depth=DEPTH, chunk=4096))
+    got = tpath.render(sc2, tscene.camera_from_dict(cam_d, device="cpu"),
+                       torch.as_tensor(u), max_depth=DEPTH,
+                       device="cpu").numpy()
+    diff = np.abs(got - want)
+    assert np.isfinite(got).all() and got.mean() > 0.01
+    assert (diff.max(-1) < 1e-4).mean() >= 0.99
+    assert diff.mean() < 1e-5

@@ -6,18 +6,22 @@ kernels replaced by CUDA kernels written by hand for ``sm_90a``
 (``csrc/intersect.cu``). ``yhair_tpu`` stays the reference; the tests in
 ``tests/test_torch_*.py`` hold each module of this package against it.
 
-This slice renders forward: the curly hairball (spheres, planes, point
-lights, a constant environment) through the cluster search.
+It renders and differentiates scenes of hair segments, spheres, planes,
+triangle meshes, point and area lights, a constant environment or an
+environment map, and textures (the ladder's configs 1-5) through the
+cluster search; Bezier curves and per-shape hair materials are not
+ported yet.
 
 Layer map:
-  core/        RNG layout, camera, scene tensors
-  geometry/    ray-segment closest approach, brute-force nearest hit
+  core/        RNG layout, camera, scene tensors, environment map, textures
+  geometry/    ray-segment closest approach, brute-force nearest hit,
+               ray-triangle search
   accel/       median-split leaf order (host numpy)
   ops/         clusters, cluster lists, the two CUDA kernels + plain twins
   bsdf/        hair and surface BSDFs
   integrator/  wavefront path tracer
   parallel/    counter-hash uniforms and the tile pixel order
-  apps/        the render CLI and progressive renderer
+  apps/        the render and invert CLIs, the progressive renderer
 
 Entry points put their tensors on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without ``device="cpu"`` they raise.

@@ -1,7 +1,8 @@
 """Offline render CLI of the port (``yhair_tpu/apps/render.py``).
 
   python -m yhair_tpu_torch.apps.render --config 3 [--resolution 256] \\
-      [--spp 16] [--bounces 6] [--seed 0] [--output out.pfm] [--device cuda]
+      [--spp 16] [--bounces 6] [--sampler path|naive|eyelight] [--seed 0] \\
+      [--output out.pfm] [--device cuda]
 
 Renders in tile-permuted strips of at most 65,536 rays through the
 cluster search, one sample per pass, with the reference's counter-hash
@@ -44,8 +45,8 @@ def load_pfm(path):
 
 @torch.no_grad()
 def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
-                       max_rays_per_call=65536, return_alive=False,
-                       log=print, device=None):
+                       sampler="path", max_rays_per_call=65536,
+                       return_alive=False, log=print, device=None):
     """Render spp samples, one per pass, each pass in equal tile-aligned
     strips of at most max_rays_per_call rays; accumulate in float64.
     No graph is kept, even for a scene with trainable leaves.
@@ -74,7 +75,7 @@ def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
             pid = pid_all[b * strip:(b + 1) * strip]
             sid = torch.full_like(pid, s)
             out = mesh.trace_pixels(scene, cam, width, height, pid, sid,
-                                    seed_word, max_depth,
+                                    seed_word, max_depth, sampler=sampler,
                                     return_alive=return_alive, device=dev)
             if return_alive:
                 out, (a_in, a_sh) = out
@@ -99,6 +100,8 @@ def build_parser():
                    help="square image size (default: the config's)")
     p.add_argument("--samples", "--spp", dest="spp", type=int, default=None)
     p.add_argument("--bounces", type=int, default=None)
+    p.add_argument("--sampler", choices=["path", "naive", "eyelight"],
+                   default="path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="out.pfm", help=".pfm or .npy")
     p.add_argument("--device", default=None,
@@ -131,16 +134,19 @@ def main(argv=None):
     res = args.resolution or res
     spp = args.spp or spp
     depth = args.bounces or depth
-    print(f"scene: {sc.segments.p0.shape[0]} segments, {sc.n_lights} "
-          f"lights, {sc.accel.n_clusters} clusters ({time.time() - t0:.1f}s)")
+    print(f"scene: {sc.segments.p0.shape[0]} segments, "
+          f"{sc.n_triangles} triangles, {sc.n_lights} point lights, "
+          f"{sc.n_area_lights} area lights, env map "
+          f"{tuple(sc.env_map.shape[:2])}, {sc.accel.n_clusters} clusters "
+          f"({time.time() - t0:.1f}s)")
     img = progressive_render(sc, cam, res, res, spp, depth, seed=args.seed,
-                             device=args.device)
+                             sampler=args.sampler, device=args.device)
     if args.output.endswith(".pfm"):
         save_pfm(args.output, img)
     else:
         np.save(args.output, img.astype(np.float32))
     print(f"wrote {args.output} ({res}x{res}, {spp} spp, depth {depth}, "
-          f"{time.time() - t0:.1f}s total)")
+          f"{args.sampler}, {time.time() - t0:.1f}s total)")
 
 
 if __name__ == "__main__":

@@ -32,6 +32,9 @@ class SurfaceMaterial(NamedTuple):
     ior: torch.Tensor           # (M,)
     transmission: torch.Tensor  # (M,)
     specular: torch.Tensor      # (M,) dielectric-lobe scale (matte = 0)
+    color_tex: torch.Tensor     # (M,) int32 scene texture id, -1 = none
+    emission_tex: torch.Tensor  # (M,) int32
+    roughness_tex: torch.Tensor  # (M,) int32
 
     @classmethod
     def make(cls, mats: list, device="cpu") -> "SurfaceMaterial":
@@ -48,6 +51,10 @@ class SurfaceMaterial(NamedTuple):
                  if width else np.asarray(rows))
             return torch.as_tensor(a.astype(np.float32), device=device)
 
+        def icol(key):
+            return torch.as_tensor([int(m.get(key, -1)) for m in mats],
+                                   dtype=torch.int32, device=device)
+
         return cls(
             emission=col("emission", (0.0, 0.0, 0.0), 3),
             color=col("color", (0.0, 0.0, 0.0), 3),
@@ -56,6 +63,9 @@ class SurfaceMaterial(NamedTuple):
             ior=col("ior", 1.5),
             transmission=col("transmission", 0.0),
             specular=col("specular", 1.0),
+            color_tex=icol("color_tex"),
+            emission_tex=icol("emission_tex"),
+            roughness_tex=icol("roughness_tex"),
         )
 
     def gather(self, idx) -> "SurfaceMaterial":

@@ -19,12 +19,11 @@ from .bsdf.surface import SurfaceMaterial
 from .core.scene import Scene
 from .device import resolve_device
 from .geometry.segments import Segments
+from .geometry.triangles import Triangles
 from .ops.clusters import Clusters
 
 # leading-dim-nonzero fields of features this slice does not render
-_UNSUPPORTED = {"tris.v0": "triangle meshes", "al_kind": "area lights",
-                "env_map": "an environment map", "tex_meta": "textures",
-                "crv_cp": "Bezier curves"}
+_UNSUPPORTED = {"crv_cp": "Bezier curves"}
 
 
 def flat_fields(tree, prefix="") -> dict:
@@ -75,16 +74,15 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
         accel = clusters_from_numpy(
             {k[len("accel."):]: v for k, v in fields.items()
              if k.startswith("accel.")}, dev)
-    return Scene(
-        segments=Segments(*(t(f"segments.{k}") for k in Segments._fields)),
-        hair=HairMaterial(*(t(f"hair.{k}") for k in HairMaterial._fields)),
-        seg_mat_id=t("seg_mat_id"),
-        surf_mat=SurfaceMaterial(*(t(f"surf_mat.{k}")
-                                   for k in SurfaceMaterial._fields)),
-        sph_center=t("sph_center"), sph_radius=t("sph_radius"),
-        pln_point=t("pln_point"), pln_normal=t("pln_normal"),
-        light_pos=t("light_pos"), light_intensity=t("light_intensity"),
-        env=t("env"), accel=accel)
+    nested = {"segments": Segments, "hair": HairMaterial,
+              "surf_mat": SurfaceMaterial, "tris": Triangles}
+
+    def field(name):
+        if name not in nested:
+            return t(name)
+        return nested[name](*(t(f"{name}.{k}") for k in nested[name]._fields))
+    return Scene(accel=accel, **{name: field(name) for name in Scene._fields
+                                 if name != "accel"})
 
 
 def params_from_numpy(arrays: dict, device=None) -> dict:

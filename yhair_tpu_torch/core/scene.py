@@ -1,12 +1,13 @@
-"""Scene tensors for the forward hairball path (``yhair_tpu/core/scene.py``).
+"""Scene tensors (``yhair_tpu/core/scene.py``).
 
-This slice carries what the curly hairball uses: hair segments with one
-global hair material, the surface-material table, spheres, planes, point
-lights, a constant environment, the per-segment material id and the
-acceleration structure. ``from_dict`` refuses a scene with anything else
-(triangle meshes, area lights, an environment map, textures, Bezier
-curves, per-shape hair tables): those slices are not ported yet, and a
-render without them would be a different image.
+Hair segments with one global hair material, the surface-material table
+(spheres, then planes, then meshes), spheres, planes, triangle meshes,
+point lights, area lights (emissive spheres and mesh triangles), a
+constant environment, an equirectangular environment map with its
+sampling tables, textures, the per-segment material id and the
+acceleration structure. ``from_dict`` refuses Bezier curves and
+per-shape hair materials: those slices are not ported yet, and a render
+without them would be a different image.
 """
 
 from __future__ import annotations
@@ -20,21 +21,49 @@ from ..bsdf.hair import HairMaterial
 from ..bsdf.surface import SurfaceMaterial
 from ..device import resolve_device
 from ..geometry.segments import Segments
+from ..geometry.triangles import Triangles
+from . import envmap, texture
 from .camera import Camera
+
+LUM = np.array([0.2126, 0.7152, 0.0722])
 
 
 class Scene(NamedTuple):
     segments: Segments
     hair: HairMaterial         # one global material (0-dim / (3,) leaves)
     seg_mat_id: torch.Tensor   # (S,) int32 hair-material index per segment
-    surf_mat: SurfaceMaterial  # (M, ...); sphere i -> i, plane j -> NS + j
+    surf_mat: SurfaceMaterial  # (M, ...); sphere i -> i, plane j -> NS + j,
+                               # mesh k -> NS + NP + k
     sph_center: torch.Tensor   # (NS, 3)
     sph_radius: torch.Tensor   # (NS,)
     pln_point: torch.Tensor    # (NP, 3)
     pln_normal: torch.Tensor   # (NP, 3)
+    tris: Triangles            # flattened triangle meshes (may be empty)
     light_pos: torch.Tensor    # (L, 3)
     light_intensity: torch.Tensor  # (L, 3)
+    # area lights: the emissive elements (spheres, mesh triangles); empty
+    # (0, ...) tables when there are none
+    al_kind: torch.Tensor      # (A,) int32: 0 = triangle, 1 = sphere
+    al_p0: torch.Tensor        # (A, 3) v0 / sphere center
+    al_p1: torch.Tensor        # (A, 3) v1 / [radius, 0, 0]
+    al_p2: torch.Tensor        # (A, 3) v2 / 0
+    al_emission: torch.Tensor  # (A, 3)
+    al_area: torch.Tensor      # (A,)
+    al_pmf: torch.Tensor       # (A,)
+    al_cdf: torch.Tensor       # (A,)
+    al_uv0: torch.Tensor       # (A, 2) per-vertex texcoords (tri lights)
+    al_uv1: torch.Tensor       # (A, 2)
+    al_uv2: torch.Tensor       # (A, 2)
+    al_tex: torch.Tensor       # (A,) int32 emission-texture id, -1 = none
+    sph_light_id: torch.Tensor  # (NS,) int32 element id, -1 = not a light
+    tri_light_id: torch.Tensor  # (T,) int32 aligned with tris
     env: torch.Tensor          # (3,) constant environment radiance
+    env_map: torch.Tensor      # (H, W, 3) equirect map; (0, 0, 3) = none
+    env_pmf: torch.Tensor      # (H*W,) texel pmf for importance sampling
+    env_cdf: torch.Tensor      # (H*W,)
+    env_sin: torch.Tensor      # (H,) sin(theta) per row
+    tex_data: torch.Tensor     # (P, 3) flattened texel table (core/texture)
+    tex_meta: torch.Tensor     # (T, 3) int32 (offset, H, W); (0, 3) = none
     accel: object = None       # ops.clusters.Clusters, or None -> brute force
 
     @property
@@ -49,16 +78,23 @@ class Scene(NamedTuple):
     def n_lights(self):
         return self.light_pos.shape[0]
 
+    @property
+    def n_triangles(self):
+        return self.tris.n_triangles
+
+    @property
+    def n_area_lights(self):
+        return self.al_kind.shape[0]
+
     def to(self, device):
         """The scene with every tensor on ``device`` (no copy if there)."""
-        fields = {}
-        for name, v in self._asdict().items():
-            fields[name] = None if v is None else v.to(device)
-        return Scene(**fields)
+        return Scene(**{name: None if v is None else v.to(device)
+                        for name, v in self._asdict().items()})
 
 
 def _material_from_legacy(prim: dict) -> dict:
-    """The oracle's lowering: {'albedo': c} => matte (specular-free)."""
+    """The reference's lowering of a prim's material: {'albedo': c} =>
+    matte (specular-free); texture ids default to -1."""
     m = dict(prim["material"]) if "material" in prim else {
         "color": prim.get("albedo", (0.0, 0.0, 0.0)), "specular": 0.0}
     return {"emission": np.asarray(m.get("emission", (0.0, 0.0, 0.0)),
@@ -69,8 +105,73 @@ def _material_from_legacy(prim: dict) -> dict:
             "ior": float(m.get("ior", 1.5)),
             "transmission": float(m.get("transmission", 0.0)),
             "specular": float(m.get("specular", 1.0)),
-            "textured": any(int(m.get(k, -1)) >= 0 for k in (
-                "color_tex", "emission_tex", "roughness_tex"))}
+            **{k: int(m.get(k, -1))
+               for k in ("color_tex", "emission_tex", "roughness_tex")}}
+
+
+def surface_materials(scene: dict) -> list:
+    """One material per sphere, then per plane, then per mesh."""
+    return [_material_from_legacy(p)
+            for p in list(scene.get("spheres") or [])
+            + list(scene.get("planes") or [])
+            + list(scene.get("meshes") or [])]
+
+
+def area_lights(scene: dict, mats: list):
+    """The emissive-element light table, float64 numpy (the reference's
+    ``oracle/pathtrace.py:scene_area_lights``): every emissive sphere
+    (kind 1) and every triangle of an emissive mesh (kind 0), picked with
+    pmf ~ area x emission luminance. None when nothing emits."""
+    spheres = list(scene.get("spheres") or [])
+    meshes = list(scene.get("meshes") or [])
+    n_pl = len(scene.get("planes") or [])
+    rows = {k: [] for k in ("kind", "p0", "p1", "p2", "emission", "area",
+                            "uv0", "uv1", "uv2", "tex")}
+
+    def add(**kw):
+        for k, v in kw.items():
+            rows[k].append(v)
+    sph_light_id = np.full(len(spheres), -1, np.int64)
+    tri_light_id = [np.zeros(0, np.int64)]
+    for i, sph in enumerate(spheres):
+        em = mats[i]["emission"]
+        if (em > 0).any():
+            sph_light_id[i] = len(rows["kind"])
+            # a sphere's uv comes from the sampled normal at NEE time
+            add(kind=1, p0=np.asarray(sph["center"], np.float64),
+                p1=np.array([sph["radius"], 0.0, 0.0]), p2=np.zeros(3),
+                emission=em, area=4.0 * np.pi * sph["radius"] ** 2,
+                uv0=np.zeros(2), uv1=np.zeros(2), uv2=np.zeros(2),
+                tex=mats[i]["emission_tex"])
+    for mi, mesh in enumerate(meshes):
+        mat = mats[len(spheres) + n_pl + mi]
+        tri = np.asarray(mesh["triangles"], np.int64)
+        ids = np.full(len(tri), -1, np.int64)
+        if (mat["emission"] > 0).any():
+            v = np.asarray(mesh["positions"], np.float64)[tri]
+            tc = mesh.get("texcoords")
+            uvv = (np.asarray(tc, np.float64)[tri] if tc is not None
+                   else np.zeros((len(tri), 3, 2)))
+            ar = 0.5 * np.linalg.norm(
+                np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=-1)
+            for ti in range(len(tri)):
+                ids[ti] = len(rows["kind"])
+                # the emission texture applies only where there are
+                # texcoords
+                add(kind=0, p0=v[ti, 0], p1=v[ti, 1], p2=v[ti, 2],
+                    emission=mat["emission"], area=ar[ti], uv0=uvv[ti, 0],
+                    uv1=uvv[ti, 1], uv2=uvv[ti, 2],
+                    tex=mat["emission_tex"] if tc is not None else -1)
+        tri_light_id.append(ids)
+    if not rows["kind"]:
+        return None
+    al = {k: np.asarray(v) for k, v in rows.items()}
+    power = al["area"] * np.maximum(al["emission"] @ LUM, 1e-12)
+    al["pmf"] = power / power.sum()
+    al["cdf"] = np.cumsum(al["pmf"])
+    al["sph_light_id"] = sph_light_id
+    al["tri_light_id"] = np.concatenate(tri_light_id)
+    return al
 
 
 def _present(v) -> bool:
@@ -78,13 +179,8 @@ def _present(v) -> bool:
                               else bool(v))
 
 
-def _refuse_unsupported(scene: dict, mats, n_spheres):
-    found = [k for k in ("meshes", "env_map", "textures", "curves",
-                         "hair_materials") if _present(scene.get(k))]
-    if any((m["emission"] > 0).any() for m in mats[:n_spheres]):
-        found.append("emissive spheres (area lights)")
-    if any(m["textured"] for m in mats):
-        found.append("textured materials")
+def _refuse_unsupported(scene: dict):
+    found = [k for k in ("curves", "hair_materials") if _present(scene.get(k))]
     if found:
         raise NotImplementedError(
             "yhair_tpu_torch does not render these scene features yet: "
@@ -95,11 +191,11 @@ def from_dict(scene: dict, device=None) -> Scene:
     """Oracle-format scene dict (``scenes.generators``) -> Scene on
     ``device`` (the card unless ``device="cpu"``)."""
     dev = resolve_device(device)
+    _refuse_unsupported(scene)
     spheres = scene.get("spheres") or []
     planes = scene.get("planes") or []
+    meshes = scene.get("meshes") or []
     lights = scene.get("point_lights") or []
-    mats = [_material_from_legacy(p) for p in list(spheres) + list(planes)]
-    _refuse_unsupported(scene, mats, len(spheres))
 
     if scene.get("segments") is not None and len(scene["segments"][0]):
         p0, p1, r0, r1 = scene["segments"]
@@ -116,6 +212,28 @@ def from_dict(scene: dict, device=None) -> Scene:
             a = np.zeros(shape)
         return torch.as_tensor(a.astype(np.float32), device=dev)
 
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    mats = surface_materials(scene)
+    tris = Triangles.from_meshes(meshes, mat_id0=len(spheres) + len(planes),
+                                 device=dev)
+    al = area_lights(scene, mats)
+    if al is None:
+        al = {k: np.zeros((0,) + s) for k, s in (
+            ("kind", ()), ("p0", (3,)), ("p1", (3,)), ("p2", (3,)),
+            ("emission", (3,)), ("area", ()), ("pmf", ()), ("cdf", ()),
+            ("uv0", (2,)), ("uv1", (2,)), ("uv2", (2,)), ("tex", ()))}
+        al["sph_light_id"] = np.full(len(spheres), -1)
+        al["tri_light_id"] = np.full(tris.n_triangles, -1)
+    env = scene.get("env_map")
+    if env is not None:
+        # an image, or an object that carries its own tables (EnvMap)
+        env = ({k: getattr(env, k) for k in ("image", "pmf", "cdf", "sin_t")}
+               if hasattr(env, "pmf") else envmap.env_tables(env))
+    tex_data, tex_meta = texture.flatten_textures(
+        [tx["data"] for tx in scene.get("textures") or []], device=dev)
+
     m = scene["hair_material"]
     hair = HairMaterial.make(
         sigma_a=np.asarray(m["sigma_a"]), beta_m=m["beta_m"],
@@ -131,9 +249,21 @@ def from_dict(scene: dict, device=None) -> Scene:
         sph_radius=t([s["radius"] for s in spheres], (0,)),
         pln_point=t([p["point"] for p in planes], (0, 3)),
         pln_normal=t([p["normal"] for p in planes], (0, 3)),
+        tris=tris,
         light_pos=t([lt["position"] for lt in lights], (0, 3)),
         light_intensity=t([lt["intensity"] for lt in lights], (0, 3)),
+        al_kind=i32(al["kind"]), al_p0=t(al["p0"]), al_p1=t(al["p1"]),
+        al_p2=t(al["p2"]), al_emission=t(al["emission"]),
+        al_area=t(al["area"]), al_pmf=t(al["pmf"]), al_cdf=t(al["cdf"]),
+        al_uv0=t(al["uv0"]), al_uv1=t(al["uv1"]), al_uv2=t(al["uv2"]),
+        al_tex=i32(al["tex"]), sph_light_id=i32(al["sph_light_id"]),
+        tri_light_id=i32(al["tri_light_id"]),
         env=t(scene.get("environment", [0.0, 0.0, 0.0])),
+        env_map=t(env["image"] if env else np.zeros((0, 0, 3))),
+        env_pmf=t(env["pmf"] if env else np.zeros(0)),
+        env_cdf=t(env["cdf"] if env else np.zeros(0)),
+        env_sin=t(env["sin_t"] if env else np.zeros(0)),
+        tex_data=tex_data, tex_meta=tex_meta,
     )
 
 

@@ -1,12 +1,16 @@
 """Wavefront path tracer (``yhair_tpu/integrator/path.py``).
 
-Camera rays -> bounce loop { intersect -> environment on miss -> direct
-lighting from point lights with shadow rays -> BSDF sample -> Russian
-roulette }, over a fixed depth with alive masks; the reference's
-``lax.scan`` is a Python loop here. It consumes the oracle's uniforms
-layout and matches ``yhair_tpu``'s ``trace`` with ``sampler="path"`` on
-scenes of hair segments, spheres, planes, point lights and a constant
-environment.
+Camera rays -> bounce loop { intersect -> environment and emission ->
+next-event estimation with shadow rays (point lights, the environment
+map, area lights) -> BSDF sample -> Russian roulette }, over a fixed
+depth with alive masks; the reference's ``lax.scan`` is a Python loop
+here. It consumes the oracle's uniforms layout and matches
+``yhair_tpu``'s ``trace`` (samplers "path", "naive" and "eyelight") on
+scenes of hair segments, spheres, planes, triangle meshes, point and
+area lights, a constant environment or an environment map, and
+textures. Light samples and BSDF samples are combined by the power
+heuristic; each bounce carries its BSDF sample's pdf and delta flag to
+the next, in the rays' own order (only the search sees the Morton sort).
 
 The hit search is discrete and runs on detached rays; the winner's t is
 then recomputed with the closed form ``_closest_approach``
@@ -22,6 +26,7 @@ f |cos| / pdf carries the gradient.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -29,11 +34,14 @@ import torch
 from ..bsdf import hair as th
 from ..bsdf import surface as ts
 from ..core.camera import Camera, camera_rays
+from ..core.envmap import env_eval, env_pdf, env_sample, has_env
 from ..core.rng import D_BOUNCE, D_PIXEL
 from ..core.safemath import safe_normalize
 from ..core.scene import Scene
+from ..core.texture import apply_textures, sample_bilinear
 from ..device import resolve_device
 from ..geometry import segments as seg
+from ..geometry import triangles as tri
 from ..ops import intersect_kernel as ik
 from ..ops.clusters import Clusters
 
@@ -46,13 +54,16 @@ class Hit(NamedTuple):
     t: torch.Tensor         # (N,)
     mat: torch.Tensor       # (N,) int32: -1 miss, 0 hair, 1 surface
     mat_id: torch.Tensor    # (N,) int32 into scene.surf_mat (surface hits)
+    light_id: torch.Tensor  # (N,) int32 area-light element id, -1 = none
     position: torch.Tensor  # (N, 3)
     normal: torch.Tensor    # (N, 3) surface shading normal
+    gnormal: torch.Tensor   # (N, 3) geometric normal (area-light MIS pdf)
     tangent: torch.Tensor   # (N, 3) hair frame x
     frame_y: torch.Tensor   # (N, 3)
     frame_z: torch.Tensor   # (N, 3)
     h: torch.Tensor         # (N,)
     radius: torch.Tensor    # (N,)
+    uv: torch.Tensor        # (N, 2) texture coordinates (surface hits)
 
 
 def _permuted(fn, perm, *args):
@@ -111,8 +122,15 @@ def _plane_t(scene: Scene, o, d):
     return torch.where((torch.abs(denom) > 1e-9) & (tp > 1e-4), tp, INF)
 
 
+def _sphere_uv(n):
+    """Spherical uv of outward unit normals n (N, 3)."""
+    return torch.stack(
+        [torch.atan2(n[:, 2], n[:, 0]) / (2.0 * math.pi) + 0.5,
+         torch.acos(torch.clamp(n[:, 1], -1.0, 1.0)) / math.pi], -1)
+
+
 def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
-    """Closest hit over hair segments, spheres and planes."""
+    """Closest hit over hair segments, spheres, planes and triangles."""
     n = o.shape[0]
     t_seg, idx, hit_seg = _nearest(scene, o, d, chunk, perm)
     t_seg, idx = t_seg.detach(), idx.detach()
@@ -125,7 +143,10 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
     best_t = torch.where(hit_seg, t_seg, INF)
     mat = torch.where(hit_seg, 0, -1).to(torch.int32)
     mat_id = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    light_id = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     normal = torch.zeros_like(o)
+    gnormal = torch.zeros_like(o)
+    uv = o.new_zeros((n, 2))
 
     if scene.n_spheres:
         t_cand = _sphere_t(scene, o, d)
@@ -138,6 +159,10 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
         n_s = (o + t_s[:, None] * d) - scene.sph_center[i_s]
         n_s = n_s / torch.clamp(_norm(n_s)[:, None], min=1e-12)
         normal = torch.where(closer[:, None], n_s, normal)
+        gnormal = torch.where(closer[:, None], n_s, gnormal)
+        uv = torch.where(closer[:, None], _sphere_uv(n_s), uv)
+        if scene.n_area_lights:
+            light_id = torch.where(closer, scene.sph_light_id[i_s], light_id)
 
     if scene.n_planes:
         tp = _plane_t(scene, o, d)
@@ -148,18 +173,47 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
         mat = torch.where(closer, 1, mat)
         mat_id = torch.where(closer, (scene.n_spheres + i_p).to(torch.int32),
                              mat_id)
-        normal = torch.where(closer[:, None], scene.pln_normal[i_p], normal)
+        pn = scene.pln_normal[i_p]
+        normal = torch.where(closer[:, None], pn, normal)
+        gnormal = torch.where(closer[:, None], pn, gnormal)
+        # planar uv in the stored normal's tangent frame (never the
+        # flipped shading normal)
+        pnu = pn / torch.clamp(_norm(pn)[:, None], min=1e-12)
+        t1p = torch.linalg.cross(pnu, torch.where(
+            torch.abs(pnu[:, 0:1]) > 0.9, pn.new_tensor([[0.0, 1.0, 0.0]]),
+            pn.new_tensor([[1.0, 0.0, 0.0]])))
+        t1p = t1p / torch.clamp(_norm(t1p)[:, None], min=1e-12)
+        t2p = torch.linalg.cross(pnu, t1p)
+        rel = (o + t_p[:, None] * d) - scene.pln_point[i_p]
+        uv_p = torch.stack([(rel * t1p).sum(-1), (rel * t2p).sum(-1)], -1)
+        uv = torch.where(closer[:, None], uv_p, uv)
+        # planes are never lights: clear a sphere's light_id they occlude
+        light_id = torch.where(closer, -1, light_id)
+
+    if scene.n_triangles:
+        t_t, i_t, hit_t = tri.nearest_hit(o, d, scene.tris, chunk=chunk)
+        closer = torch.where(hit_t, t_t, INF) < best_t
+        best_t = torch.where(closer, t_t, best_t)
+        mat = torch.where(closer, 1, mat)
+        tsh = tri.shade_info(o, d, i_t, scene.tris)
+        mat_id = torch.where(closer, tsh.mat_id, mat_id)
+        normal = torch.where(closer[:, None], tsh.normal, normal)
+        gnormal = torch.where(closer[:, None], tsh.gnormal, gnormal)
+        uv = torch.where(closer[:, None], tsh.uv, uv)
+        if scene.n_area_lights:
+            light_id = torch.where(closer, scene.tri_light_id[i_t], light_id)
 
     hit = best_t < INF
     is_hair = hit & (mat == 0)
     sh = seg.shade_info(o, d, torch.where(is_hair, best_t, 0.0), idx, segs)
     pos = o + torch.where(hit, best_t, 0.0)[:, None] * d
     return Hit(hit=hit, t=torch.where(hit, best_t, INF), mat=mat,
-               mat_id=mat_id,
+               mat_id=mat_id, light_id=light_id,
                position=torch.where(is_hair[:, None], sh.position, pos),
-               normal=normal, tangent=sh.tangent, frame_y=sh.frame_y,
-               frame_z=sh.frame_z, h=torch.where(is_hair, sh.h, 0.0),
-               radius=torch.where(is_hair, sh.radius, 0.0))
+               normal=normal, gnormal=gnormal, tangent=sh.tangent,
+               frame_y=sh.frame_y, frame_z=sh.frame_z,
+               h=torch.where(is_hair, sh.h, 0.0),
+               radius=torch.where(is_hair, sh.radius, 0.0), uv=uv)
 
 
 def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
@@ -177,6 +231,8 @@ def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
         occ = occ | (_sphere_t(scene, o, d).amin(-1) < limit)
     if scene.n_planes:
         occ = occ | (_plane_t(scene, o, d).amin(-1) < limit)
+    if scene.n_triangles:
+        occ = occ | tri.occluded(o, d, dist, scene.tris, chunk=chunk)
     return occ
 
 
@@ -220,6 +276,45 @@ def _sort_bounds(scene: Scene):
     return lo, 1.0 / torch.clamp(hi - lo, min=1e-6)
 
 
+def _area_light_point(scene: Scene, el, u0, u1):
+    """A point on area-light element el. -> (point, normal, uv)."""
+    kind = scene.al_kind[el]
+    p0, p1, p2 = scene.al_p0[el], scene.al_p1[el], scene.al_p2[el]
+    su = torch.sqrt(torch.clamp(u0, min=0.0))
+    w1 = su * (1.0 - u1)
+    w2 = su * u1
+    w0 = 1.0 - w1 - w2
+    p_tri = w0[:, None] * p0 + w1[:, None] * p1 + w2[:, None] * p2
+    n_tri = torch.linalg.cross(p1 - p0, p2 - p0)
+    n_tri = n_tri / torch.clamp(_norm(n_tri)[:, None], min=1e-20)
+    uv_tri = (w0[:, None] * scene.al_uv0[el] + w1[:, None] * scene.al_uv1[el]
+              + w2[:, None] * scene.al_uv2[el])
+    z = 1.0 - 2.0 * u0
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u1
+    n_sph = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+    p_sph = p0 + n_sph * p1[:, 0:1]
+    is_tri = (kind == 0)[:, None]
+    return (torch.where(is_tri, p_tri, p_sph),
+            torch.where(is_tri, n_tri, n_sph),
+            torch.where(is_tri, uv_tri, _sphere_uv(n_sph)))
+
+
+def _area_light_pdf_sa(scene: Scene, el, pos, lpos, lnrm):
+    """Solid-angle pdf of area-light NEE reaching lpos from pos."""
+    to_l = lpos - pos
+    dist2 = (to_l * to_l).sum(-1)
+    dist = torch.sqrt(torch.clamp(dist2, min=1e-24))
+    cos_l = torch.abs((lnrm * to_l).sum(-1)) / dist
+    return (scene.al_pmf[el] * dist2
+            / torch.clamp(cos_l * scene.al_area[el], min=1e-12))
+
+
+def _mis(a, b):
+    """The power heuristic's weight of the strategy with pdf a."""
+    return a ** 2 / torch.clamp(a ** 2 + b ** 2, min=1e-30)
+
+
 def _diffuse_frame(nrm):
     a = torch.where(torch.abs(nrm[:, 0:1]) > 0.9,
                     nrm.new_tensor([[0.0, 1.0, 0.0]]),
@@ -237,21 +332,72 @@ def _to_world(w, fx, fy, fz):
     return w[..., 0:1] * fx + w[..., 1:2] * fy + w[..., 2:3] * fz
 
 
+def _shading_frame(hs: Hit, d):
+    """(is_hair, fx, fy, fz): the hair frame on hair hits, else a frame
+    around the surface normal flipped to face the ray (double-sided
+    shading; the surface BSDF expects wo.z > 0)."""
+    is_hair = hs.mat == 0
+    nrm = hs.normal * torch.where(
+        ((hs.normal * d).sum(-1) > 0)[:, None], -1.0, 1.0)
+    t1, t2 = _diffuse_frame(nrm)
+    fx = torch.where(is_hair[:, None], hs.tangent, t1)
+    fy = torch.where(is_hair[:, None], hs.frame_y, t2)
+    fz = torch.where(is_hair[:, None], hs.frame_z, nrm)
+    return is_hair, fx, fy, fz
+
+
+def _surface_at(scene: Scene, hs: Hit):
+    """The hit surfaces' materials with their textures applied."""
+    sp = scene.surf_mat.gather(hs.mat_id)
+    if scene.tex_meta.shape[0]:
+        sp = apply_textures(scene.tex_data, scene.tex_meta, sp, hs.uv)
+    return sp
+
+
+def trace_eyelight(scene: Scene, o, d, chunk=2048):
+    """Debug sampler: the first hit shaded by a headlight."""
+    hs = intersect_scene(scene, o, d, chunk=chunk)
+    sp = _surface_at(scene, hs)
+    is_hair, fx, fy, fz = _shading_frame(hs, d)
+    wo = _to_local(-d, fx, fy, fz)
+    f_hair = th.hair_f(scene.hair, hs.h, wo, wo) * torch.abs(wo[:, 2:3])
+    f_surf = ts.surface_f(sp, wo, wo) * torch.abs(wo[:, 2:3]) + sp.emission
+    f = torch.where(is_hair[:, None], f_hair, f_surf) * math.pi
+    return torch.where(hs.hit[:, None], f, scene.env.expand_as(f))
+
+
 def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
-          sort_rays=None, return_alive=False, device=None):
-    """Path-trace a ray batch (the reference's ``sampler="path"``).
+          sampler="path", sort_rays=None, return_alive=False, device=None):
+    """Path-trace a ray batch.
 
     o, d: (N, 3); uniforms: (N, n_uniform_dims(max_depth)). -> L (N, 3).
+    sampler: "path" (next-event estimation and BSDF sampling, combined
+    by the power heuristic), "naive" (BSDF sampling only) or "eyelight"
+    (debug: the first hit under a headlight).
     sort_rays: sort each bounce's search by Morton cell (see
     ``_ray_sort_perm``; the image is bit-identical either way). None =
     on for large batches over large segment sets.
     return_alive: also return per-depth (alive bounce rays, live shadow
     rays) counts, each a (max_depth,) int64 tensor.
     """
+    if sampler not in ("path", "naive", "eyelight"):
+        raise ValueError(f"unknown sampler {sampler!r}")
     dev = resolve_device(device)
     scene = scene.to(dev)
     o, d, uniforms = o.to(dev), d.to(dev), uniforms.to(dev)
     n = o.shape[0]
+    if sampler == "eyelight":
+        L = trace_eyelight(scene, o, d, chunk=chunk)
+        if return_alive:
+            return L, (torch.full((1,), n, device=dev),
+                       torch.zeros(1, dtype=torch.int64, device=dev))
+        return L
+    use_nee = sampler == "path"
+    use_env = has_env(scene)
+    use_area = use_nee and scene.n_area_lights > 0
+    # shadow rays of each live bounce ray
+    n_sh = ((scene.n_lights if use_nee else 0) + int(use_env and use_nee)
+            + int(use_area))
     if sort_rays is None:
         sort_rays = (max_depth > 1 and n >= 4096
                      and scene.segments.p0.shape[0] >= 4096)
@@ -261,6 +407,9 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
     L = torch.zeros_like(o)
     beta = torch.ones_like(o)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    # the previous bounce's BSDF-sample pdf and delta flag (MIS state)
+    prev_pdf = o.new_zeros((n,))
+    prev_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
     perm = None
     n_alive, n_shadow = [], []
     for depth in range(max_depth):
@@ -273,28 +422,51 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
         hs = intersect_scene(scene, o_int, d, chunk=chunk, perm=perm)
         miss = alive & ~hs.hit
         L = L + torch.where(miss[:, None], beta * scene.env, 0.0)
+        # camera rays and delta bounces take a MIS weight of 1
+        first = prev_delta | (depth == 0)
+        if use_env:
+            # env-map radiance on a miss, weighted against the previous
+            # bounce's env NEE
+            w = torch.ones_like(prev_pdf)
+            if use_nee:
+                w = torch.where(first, 1.0,
+                                _mis(prev_pdf, env_pdf(scene, d)))
+            L = L + torch.where(miss[:, None],
+                                beta * env_eval(scene, d) * w[:, None], 0.0)
         alive = alive & hs.hit
-        n_shadow.append(alive.sum() * scene.n_lights)
-        is_hair = hs.mat == 0
-        sp = scene.surf_mat.gather(hs.mat_id)
+        n_shadow.append(alive.sum() * n_sh)
+        sp = _surface_at(scene, hs)
+        is_hair, fx, fy, fz = _shading_frame(hs, d)
+        # emission of surface hits (area lights BSDF rays find), weighted
+        # against the area-light NEE that could have reached the point
+        w_em = torch.ones_like(prev_pdf)
+        if use_area:
+            pdf_l = _area_light_pdf_sa(scene, torch.clamp(hs.light_id, min=0),
+                                       o, hs.position, hs.gnormal)
+            w = torch.where(first, 1.0, _mis(prev_pdf, pdf_l))
+            w_em = torch.where(hs.light_id >= 0, w, 1.0)
         L = L + torch.where((alive & ~is_hair)[:, None],
-                            beta * sp.emission, 0.0)
+                            beta * sp.emission * w_em[:, None], 0.0)
 
-        # surface normals flipped to face the ray (double-sided shading)
-        nrm = hs.normal * torch.where(
-            ((hs.normal * d).sum(-1) > 0)[:, None], -1.0, 1.0)
-        t1, t2 = _diffuse_frame(nrm)
-        fx = torch.where(is_hair[:, None], hs.tangent, t1)
-        fy = torch.where(is_hair[:, None], hs.frame_y, t2)
-        fz = torch.where(is_hair[:, None], hs.frame_z, nrm)
         wo = _to_local(-d, fx, fy, fz)
         pos = hs.position
         ray_eps = torch.where(is_hair, 2.0 * hs.radius, 1e-4)
         # wi-independent hair BSDF work, shared by every wi below
         hctx = th.hair_ctx(scene.hair, hs.h, wo)
 
+        def bsdf(wi_w):
+            """(f |cos|, detached pdf of BSDF sampling) towards wi_w."""
+            wi = _to_local(wi_w, fx, fy, fz)
+            fp_hair, pdf_hair = th.hair_f_pdf_ctx(hctx, wi)
+            cos = torch.abs(wi[:, 2:3])
+            f = torch.where(is_hair[:, None], fp_hair * cos,
+                            ts.surface_f(sp, wo, wi) * cos)
+            pdf_b = torch.where(is_hair, pdf_hair.detach(),
+                                ts.surface_pdf(sp, wo, wi).detach())
+            return f, pdf_b
+
         # direct lighting: every point light, deterministic sum
-        for li in range(scene.n_lights):
+        for li in range(scene.n_lights if use_nee else 0):
             to_l = scene.light_pos[li] - pos
             dist = _norm(to_l)
             wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
@@ -309,6 +481,46 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
                 dist[:, None] ** 2, min=1e-12)
             L = L + torch.where((alive & vis)[:, None], contrib, 0.0)
 
+        # environment-map NEE, weighted against BSDF sampling
+        if use_env and use_nee:
+            wi_w, pdf_e = env_sample(scene, ub[:, 6], ub[:, 7])
+            le = env_eval(scene, wi_w)
+            sh_o = pos + wi_w * ray_eps[:, None]
+            vis = ~occluded_scene(scene, sh_o, wi_w,
+                                  torch.full((n,), INF, device=dev),
+                                  chunk=chunk, perm=perm)
+            f, pdf_b = bsdf(wi_w)
+            contrib = beta * f * le * (
+                _mis(pdf_e, pdf_b) / torch.clamp(pdf_e, min=1e-12))[:, None]
+            L = L + torch.where((alive & vis)[:, None], contrib, 0.0)
+
+        # area-light NEE (emissive spheres, mesh triangles)
+        if use_area:
+            el = torch.clamp(
+                torch.searchsorted(scene.al_cdf, ub[:, 5].contiguous()),
+                max=scene.n_area_lights - 1)
+            lpos, lnrm, luv = _area_light_point(scene, el, ub[:, 8],
+                                                ub[:, 9])
+            lpos = lpos.detach()
+            to_l = lpos - pos
+            dist = _norm(to_l)
+            wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
+            pdf_a = _area_light_pdf_sa(scene, el, pos, lpos, lnrm).detach()
+            sh_o = pos + wi_w * ray_eps[:, None]
+            vis = ~occluded_scene(scene, sh_o, wi_w, dist - 2.0 * ray_eps,
+                                  chunk=chunk, perm=perm)
+            f, pdf_b = bsdf(wi_w)
+            le = scene.al_emission[el]
+            if scene.tex_meta.shape[0]:
+                # NEE integrates the same textured emission BSDF hits see
+                le = le * sample_bilinear(scene.tex_data, scene.tex_meta,
+                                          scene.al_tex[el], luv[:, 0],
+                                          luv[:, 1])
+            ok = alive & vis & (pdf_a > 1e-12) & (dist > 4.0 * ray_eps)
+            contrib = beta * f * le * (
+                _mis(pdf_a, pdf_b) / torch.clamp(pdf_a, min=1e-12))[:, None]
+            L = L + torch.where(ok[:, None], contrib, 0.0)
+
         # BSDF sampling: the direction and its pdf are detached, f
         # carries the gradient
         wi_h = th.hair_sample_wi(hctx, ub[:, :4]).detach()
@@ -317,9 +529,11 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
         w_hair = f_h * torch.abs(wi_h[:, 2:3]) / torch.clamp(
             pdf_h[:, None], min=1e-12)
         w_hair = torch.where((pdf_h > 1e-12)[:, None], w_hair, 0.0)
-        wi_s, w_surf, _, _ = ts.surface_sample(sp, wo, ub[:, :3])
+        wi_s, w_surf, pdf_s, delta_s = ts.surface_sample(sp, wo, ub[:, :3])
         wi = torch.where(is_hair[:, None], wi_h, wi_s)
         beta = beta * torch.where(is_hair[:, None], w_hair, w_surf)
+        prev_pdf = torch.where(is_hair, pdf_h, pdf_s)
+        prev_delta = ~is_hair & delta_s
 
         d = safe_normalize(_to_world(wi, fx, fy, fz))
         o = pos + d * ray_eps[:, None]
@@ -337,7 +551,7 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
 
 
 def render(scene: Scene, cam: Camera, uniforms, max_depth=4, chunk=2048,
-           device=None):
+           sampler="path", device=None):
     """Render from a full uniforms tensor (H, W, spp, D) -> (H, W, 3)."""
     dev = resolve_device(device)
     uniforms, cam = uniforms.to(dev), cam.to(dev)
@@ -349,5 +563,6 @@ def render(scene: Scene, cam: Camera, uniforms, max_depth=4, chunk=2048,
     u = uniforms.reshape(hgt * wid * spp, -1)
     o, d = camera_rays(cam, wid, hgt, i.to(u.dtype), j.to(u.dtype),
                        u[:, :4])
-    L = trace(scene, o, d, u, max_depth=max_depth, chunk=chunk, device=dev)
+    L = trace(scene, o, d, u, max_depth=max_depth, chunk=chunk,
+              sampler=sampler, device=dev)
     return L.reshape(hgt, wid, spp, 3).mean(2)

@@ -93,8 +93,8 @@ def ray_uniforms(seed_word: int, pixel_ids, sample_ids, max_depth,
 
 
 def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
-                 seed_word, max_depth, chunk=2048, return_alive=False,
-                 device=None):
+                 seed_word, max_depth, chunk=2048, sampler="path",
+                 return_alive=False, device=None):
     """Trace one flat batch of (pixel, sample) rays -> (B, 3) radiance
     (the reference's ``_trace_pixels``)."""
     from ..core.camera import camera_rays
@@ -107,7 +107,8 @@ def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
     j = (pixel_ids // width).to(u.dtype)
     o, d = camera_rays(cam.to(dev), width, height, i, j, u[:, :4])
     return path.trace(scene, o, d, u, max_depth=max_depth, chunk=chunk,
-                      return_alive=return_alive, device=dev)
+                      sampler=sampler, return_alive=return_alive,
+                      device=dev)
 
 
 def pixel_strips(n_pixels, spp):
