@@ -37,25 +37,51 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             param inside PARAM_BOUNDS and moved from its start.
 5. golden   ladder config 3 at its spec (256x256, 16 spp, depth 6, seed
             0) against ``goldens/config3_stats.json``.
-6. scene5   ladder config 5 (the furry bunny) at full size: 300,000 hair
+6. kernels_inst3, inst3  config 3 posed as two instances of its one
+            cluster build (identity; yaw 40 degrees, scale 1.1, offset
+            (0.35, 0, 0.1)) with hair-material rows 0 and 1 (beta_m x
+            1.6). ``kernels_inst3`` is ``kernels`` on the centre strip:
+            every launch, made on rays in an instance's frame, bit-equal
+            to its plain version, the searches against the brute force
+            and the recompute over the canonical segments. ``inst3``:
+            the instanced forward frame against the same two wigs baked
+            into 240,000 segments in 2,048 clusters (>= 97% of the values
+            within 5e-3), each frame's seconds, Mrays/s and launches, the
+            instance box tests (one host sync each) and skips; then one
+            forward+backward frame into the two-row table.
+7. soft3    config 3 with edge_softness 0.2: d mean(L) / d radius scale
+            and / d one segment's p0 on the centre 32x32 window at depth
+            2, card against CPU within 1%; three ``invert
+            --edge-softness 0.2`` steps.
+8. curves   config 1's strand as one first-class Bezier curve against
+            it tessellated into 8 segments (64x64, 4 spp, depth 2; >=
+            99.5% of the pixels within 1e-2), then the control-point
+            inverse of ``tests/test_curves.py:130`` (100 Adam steps; the
+            last loss below 0.6x the first, the error below 0.8x).
+9. full     the all-features scene of ``__graft_entry__.py`` (two posed
+            instances, a curve, a textured area light, an env map, a
+            textured plane) built without JAX: one ``train_step_fn`` step
+            (16x16, 2 spp, depth 2, edge_softness 0.2) on the card and on
+            the CPU, the loss and gradients within 1% of each other.
+10. scene5  ladder config 5 (the furry bunny) at full size: 300,000 hair
             segments in 4,096 clusters (a power of two; 2,344 hold
             segments), an 800-triangle mesh, a plane, a point light and
             a 64x128 environment map.
-7. kernels5 as ``kernels``, on the 65,536-ray strip through the centre
+11. kernels5 as ``kernels``, on the 65,536-ray strip through the centre
             of config 5's 1024x1024 frame at depth 6: every launch
             bit-equal to its plain version, with the count of blocks
             sent as the "scan every cluster" sentinel (lists longer
             than MAX_IDS).
-8. main5    config 5's frame (1024x1024, 1 spp, depth 6, 16 strips)
+12. main5   config 5's frame (1024x1024, 1 spp, depth 6, 16 strips)
             through ``progressive_render``, launch counts set to 0 just
             before and read just after.
-9. train5   config 5's forward+backward frame (timed once: main5 warmed
+13. train5  config 5's forward+backward frame (timed once: main5 warmed
             the forward) and its peak memory; the card-against-CPU
             gradient check (a 32x32 window at the centre, depth 2, the
             card's gradients within GRAD5_RTOL of the CPU's plain
             kernels on the same rays); ``invert --config 5 --resolution
             1024 --spp 1 --bounces 6 --steps 3 --pixel-batch 2048``.
-10. golden5 config 5 at 1024x1024, depth 6, on the first 4 of the
+14. golden5 config 5 at 1024x1024, depth 6, on the first 4 of the
             golden's 64 sample streams: the mean within 1% of
             ``goldens/config5_stats.json``; the p99 and the 256x256
             box-downsample's mean |diff| from ``goldens/config5.pfm``
@@ -70,7 +96,7 @@ device's idle share; then config 5's centre strip forward (``profile5``).
 
 A ``total`` line gives the script's seconds.
 The line before the last is the ``kernels`` record (each kernel on the
-config-3 and on the config-5 path), the last one
+config-3, the config-5 and the instanced path), the last one
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -110,6 +136,16 @@ DEPTH5 = 6
 GOLDEN5_SPP = 4
 INVERT5_BATCH = 2048
 GRAD5_WINDOW, GRAD5_DEPTH, GRAD5_RTOL = 32, 2, 1e-2
+# config 3 posed twice (tests/test_instances.py:32-38), hair-material
+# rows 0 and 1; the reference's gate of instanced against baked
+_C40, _S40 = 0.766044443118978, 0.6427876096865393
+INST_FRAMES = [[[1, 0, 0], [0, 1, 0], [0, 0, 1], [0, 0, 0]],
+               [[_C40 * 1.1, 0, -_S40 * 1.1], [0, 1.1, 0],
+                [_S40 * 1.1, 0, _C40 * 1.1], [0.35, 0.0, 0.1]]]
+INST_TOL, INST_CLOSE = 5e-3, 0.97
+# soft silhouettes on config 3
+SOFT = 0.2
+SOFT_WINDOW, SOFT_DEPTH, SOFT_RTOL = 32, 2, 1e-2
 
 
 def emit(**fields):
@@ -308,7 +344,11 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     from yhair_tpu_torch.ops import intersect_kernel as ik
     from yhair_tpu_torch.parallel import mesh
 
-    cl = sc.accel
+    from yhair_tpu_torch.accel.instanced import InstancedClusters
+
+    # posed instances run the kernels on rays in each instance's frame,
+    # against the canonical clusters
+    cl = sc.accel.cl if isinstance(sc.accel, InstancedClusters) else sc.accel
     c = cl.n_clusters
     pid = strip_pixels(width, height, strip, dev)
     with Recorder(ik) as rec:
@@ -364,7 +404,8 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     sentinel = sentinel_check(rec, c, phase) if c > ik._k_cap(c) else None
 
     # the two-pass searches against the brute force, and each hit's t
-    # against the integrator's closed-form recompute
+    # against the integrator's closed-form recompute (both in the frame
+    # the kernels saw: an instance's, over the canonical segments)
     segs = sc.segments
     n_brute = n_hits = 0
     for o, d, (t, idx, hit) in rec.nearest:
@@ -415,7 +456,10 @@ def shadow_rays_per_bounce(sc):
 
 
 def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
-               phase="main"):
+               phase="main", emit_line=True):
+    """A forward frame through ``progressive_render``, the launch counts
+    set to 0 just before and read just after. -> (launches, image, the
+    printed fields)."""
     import numpy as np
     import torch
 
@@ -425,6 +469,7 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     for k in ik.LAUNCHES:
         ik.LAUNCHES[k] = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     img, (n_alive, n_shadow) = app.progressive_render(
         sc, cam, width, height, SPP, depth, seed=0, return_alive=True,
@@ -437,13 +482,16 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
             f"a kernel was not launched on the main path: {launches}")
     n_rays = width * height * SPP
     rays = n_rays * depth * (1 + shadow_rays_per_bounce(sc))
-    emit(phase=phase, ok=True, width=width, height=height, spp=SPP,
-         depth=depth, strips=-(-n_rays // STRIP), frame_s=frame_s,
-         mrays_s=rays / frame_s / 1e6,
-         alive_frac=(n_alive + n_shadow) / rays,
-         alive_bounce_rays=n_alive, live_shadow_rays=n_shadow,
-         launches=launches, image_mean=float(img.mean()))
-    return launches
+    fields = dict(width=width, height=height, spp=SPP, depth=depth,
+                  strips=-(-n_rays // STRIP), frame_s=frame_s,
+                  mrays_s=rays / frame_s / 1e6,
+                  alive_frac=(n_alive + n_shadow) / rays,
+                  alive_bounce_rays=n_alive, live_shadow_rays=n_shadow,
+                  launches=launches, image_mean=float(img.mean()),
+                  peak_device_bytes=torch.cuda.max_memory_allocated())
+    if emit_line:
+        emit(phase=phase, ok=True, **fields)
+    return launches, img, fields
 
 
 def trainable(sc):
@@ -676,6 +724,386 @@ def device_gradient_check(sc, cam, dev, width=W5, height=H5,
     return pairs
 
 
+def full_feature_scene(dev):
+    """The all-features scene of ``__graft_entry__.py:112-160``, built
+    without JAX: two posed instances of a 48-strand hair patch (one
+    cluster build), a first-class Bezier curve, a textured emissive quad
+    (an area light), an environment map, a textured plane and a point
+    light. -> (scene, camera) on dev."""
+    import numpy as np
+
+    from scenes.generators import hair_patch
+    from yhair_tpu_torch.accel.instanced import build_instanced
+    from yhair_tpu_torch.core import scene as tscene
+    from yhair_tpu_torch.ops import build_scene_clusters
+
+    scene_d, cam_d = hair_patch(n_strands=48, n_seg=3)
+    quad = {
+        "positions": np.array([[-0.3, 0.45, -0.3], [0.3, 0.45, -0.3],
+                               [0.3, 0.45, 0.3], [-0.3, 0.45, 0.3]]),
+        "triangles": np.array([[0, 1, 2], [0, 2, 3]], np.int64),
+        "texcoords": np.array([[0, 0], [1, 0], [1, 1], [0, 1]],
+                              np.float64),
+        "material": {"emission": [4.0, 3.5, 3.0], "color": [0, 0, 0],
+                     "emission_tex": 0},
+    }
+    checker = np.where((np.indices((4, 4)).sum(0) % 2)[..., None] > 0,
+                       np.array([1.0, 0.8, 0.6]), np.array([0.4, 0.5, 0.9]))
+    scene_d = dict(
+        scene_d, meshes=[quad],
+        planes=[{"point": [0, -0.4, 0], "normal": [0, 1, 0],
+                 "material": {"color": [0.5, 0.5, 0.5], "color_tex": 1}}],
+        textures=[{"data": checker}, {"data": checker[::-1]}],
+        env_map=0.05 + 0.1 * np.random.default_rng(3).random((4, 8, 3)),
+        curves={"cp": np.array([[[-0.2, -0.1, 0.2], [-0.1, 0.15, 0.2],
+                                 [0.1, -0.15, 0.2], [0.2, 0.1, 0.2]]]),
+                "r0": np.array([0.01]), "r1": np.array([0.004])})
+    sc, cl = build_scene_clusters(tscene.from_dict(scene_d, device=dev),
+                                  device=dev)
+    frames = [[[1, 0, 0], [0, 1, 0], [0, 0, 1], [0, 0, 0]],
+              [[0, 1, 0], [-1, 0, 0], [0, 0, 1], [0.12, 0.0, 0.05]]]
+    return (sc._replace(accel=build_instanced(cl, frames, device=dev)),
+            tscene.camera_from_dict(cam_d, device=dev))
+
+
+def instanced_config3(sc, dev):
+    """Config 3's clustered scene posed twice (INST_FRAMES, one cluster
+    build held once), and the same two wigs baked into one flat soup and
+    clustered anew; hair-material row 0 is config 3's, row 1 the same
+    with beta_m x 1.6 (``tests/test_instances.py:_baked_scene``).
+
+    The bake flattens the very geometry the instanced path poses (its
+    float32 canonical segments through ``gather_world_segments``). A bake
+    posed in float64 from the generator's segments differs from it by
+    ulps of the coordinates, and depth-4 paths in the dense hairball
+    amplify that: 96.2% of the values agree within 5e-3 at 64x64 on the
+    CPU, 96.4% at 512x512 on the card, against 99.95% for this bake.
+    -> (instanced scene, baked scene)."""
+    import numpy as np
+    import torch
+
+    from scenes.generators import CONFIGS
+    from yhair_tpu_torch.accel.instanced import (build_instanced,
+                                                 gather_world_segments)
+    from yhair_tpu_torch.core import scene as tscene
+    from yhair_tpu_torch.ops import build_scene_clusters
+
+    ic = build_instanced(sc.accel, INST_FRAMES, inst_mat=[0, 1], device=dev)
+    real = torch.nonzero(ic.cl.seg_index >= 0)[:, 0]
+    n_seg = ic.cl.seg_index.shape[0]
+    *posed, mid = gather_world_segments(ic, sc.segments, torch.cat(
+        [i * n_seg + real for i in range(ic.n_instances)]))
+    scene_d, _ = CONFIGS[3]["fn"]()
+    m = scene_d["hair_material"]
+    baked = dict(scene_d, segments=tuple(a.cpu().numpy() for a in posed),
+                 hair_materials=[m, dict(m, beta_m=min(0.9,
+                                                       m["beta_m"] * 1.6))],
+                 segment_mat_id=mid.cpu().numpy())
+    sc_baked, _ = build_scene_clusters(tscene.from_dict(baked, device=dev),
+                                       device=dev)
+    return sc._replace(hair=sc_baked.hair, accel=ic), sc_baked
+
+
+class SkipCounter:
+    """Counts, for the span of a ``with``, the instance box tests of the
+    instanced searches (each ends in one host sync: does any ray touch
+    the box?) and the instance searches that ran (cluster lists and
+    kernels); the difference is the instances skipped."""
+
+    def __enter__(self):
+        from yhair_tpu_torch.accel import instanced
+        from yhair_tpu_torch.ops import intersect_kernel as ik
+        self.mods = [(instanced, "_box_interval"), (ik, "nearest_hit"),
+                     (ik, "any_hit")]
+        self.orig = [getattr(m, n) for m, n in self.mods]
+        self.calls = [0, 0, 0]
+
+        def counting(i, fn):
+            def run(*a, **kw):
+                self.calls[i] += 1
+                return fn(*a, **kw)
+            return run
+        for i, ((m, n), fn) in enumerate(zip(self.mods, self.orig)):
+            setattr(m, n, counting(i, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.mods, self.orig):
+            setattr(m, n, fn)
+
+    def fields(self):
+        box, near, anyh = self.calls
+        return dict(instance_box_tests=box, host_syncs=box,
+                    instance_searches=near + anyh,
+                    instances_skipped=box - near - anyh)
+
+
+def phase_inst3(sc, cam, dev):
+    """Config 3 posed as two instances with two hair materials: the
+    kernels on the centre strip (every launch bit-equal to its plain
+    version, in each instance's frame), the forward frame against the
+    baked scene's, and one forward+backward frame into the two-row
+    table. -> (hit stats, any stats, launches of the instanced frame)."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    sc_inst, sc_baked = instanced_config3(sc, dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    ic = sc_inst.accel
+    hit_i, any_i = phase_kernels(sc_inst, cam, dev,
+                                 strip=WIDTH * HEIGHT // STRIP // 2,
+                                 phase="kernels_inst3")
+    with SkipCounter() as skips:
+        launches, img_i, inst = phase_main(sc_inst, cam, dev,
+                                           phase="inst3", emit_line=False)
+    launches_b, img_b, baked = phase_main(sc_baked, cam, dev, phase="inst3",
+                                          emit_line=False)
+    close = np.isclose(img_i, img_b, rtol=INST_TOL, atol=INST_TOL)
+    require(close.mean() >= INST_CLOSE, "inst3",
+            f"instanced frame against baked: only {close.mean():.4f} of the "
+            f"values within {INST_TOL}")
+    fwdbwd = bench_fwdbwd(sc_inst, cam, dev, warm_up=False, phase="inst3")
+    emit(phase="inst3", ok=True, instances=ic.n_instances,
+         canonical_segments=int((ic.cl.seg_index >= 0).sum()),
+         clusters=ic.cl.n_clusters, tile_bytes=nbytes(ic.cl.tc),
+         baked_clusters=sc_baked.accel.n_clusters,
+         baked_tile_bytes=nbytes(sc_baked.accel.tc), build_s=build_s,
+         hair_materials={k: v.tolist() for k, v in
+                         sc_inst.hair._asdict().items()},
+         instanced=dict(inst, **skips.fields()), baked=baked,
+         close_frac=float(close.mean()), close_tol=INST_TOL,
+         close_gate=INST_CLOSE,
+         max_abs_diff=float(np.abs(img_i - img_b).max()), **fwdbwd)
+    return hit_i, any_i, launches
+
+
+def soft_gradient_check(sc, cam, dev, width=WIDTH, height=HEIGHT,
+                        window=SOFT_WINDOW, depth=SOFT_DEPTH, soft=SOFT,
+                        rtol=SOFT_RTOL, phase="soft3"):
+    """With soft silhouettes, d mean(L) / d radius scale and / d the p0
+    of the segment the card's gradient moves most, on the centre window's
+    rays, on the card (both kernels) against the same rays, scene and
+    uniforms on the CPU (the kernels' plain versions): finite, non-zero,
+    within rtol (the p0 row by its vector norm)."""
+    import torch
+
+    from yhair_tpu_torch.parallel import mesh
+
+    pix = centre_pixels(width, height, window)
+
+    def grads(scene, device):
+        s = torch.ones((), device=device, requires_grad=True)
+        p0 = scene.segments.p0.detach().clone().requires_grad_(True)
+        segs = scene.segments._replace(p0=p0, r0=scene.segments.r0 * s,
+                                       r1=scene.segments.r1 * s)
+        pid = torch.as_tensor(pix, device=device)
+        L = mesh.trace_pixels(scene._replace(segments=segs), cam.to(device),
+                              width, height, pid, torch.zeros_like(pid),
+                              mesh.key_seed(0), depth, edge_softness=soft,
+                              device=device)
+        L.double().mean().backward()
+        return float(s.grad), p0.grad.cpu()
+
+    s_card, p0_card = grads(sc, dev)
+    s_cpu, p0_cpu = grads(sc.to("cpu"), torch.device("cpu"))
+    row = int(p0_card.norm(dim=-1).argmax())
+    a, b = p0_card[row], p0_cpu[row]
+    out = dict(radius_scale=dict(card=s_card, cpu=s_cpu,
+                                 rel_err=abs(s_card - s_cpu) / max(
+                                     abs(s_cpu), 1e-30)),
+               p0=dict(segment=row, card=a.tolist(), cpu=b.tolist(),
+                       rel_err=float((a - b).norm() / max(float(b.norm()),
+                                                          1e-30))))
+    for k, v in out.items():
+        require(v["rel_err"] <= rtol and bool(torch.isfinite(
+            torch.tensor(v["card"])).all()) and torch.tensor(
+            v["cpu"]).abs().max() > 0, phase,
+            f"card-against-CPU soft-edge gradient of {k}: {v}")
+    return out
+
+
+def phase_soft3(sc, cam, dev):
+    """Config 3 with soft silhouettes: the card-against-CPU geometry
+    gradients and three ``invert --edge-softness`` steps."""
+    fields = dict(gradient_check=soft_gradient_check(sc, cam, dev))
+    fields.update(invert_steps(dev, (
+        "--config", "3", "--resolution", str(WIDTH), "--spp", str(SPP),
+        "--bounces", str(DEPTH), "--steps", "3", "--pixel-batch", str(STRIP),
+        "--edge-softness", str(SOFT)), phase="soft3"))
+    emit(phase="soft3", ok=True, edge_softness=SOFT, grad_window=SOFT_WINDOW,
+         grad_depth=SOFT_DEPTH, grad_rtol=SOFT_RTOL, **fields)
+
+
+# the control-point inverse of tests/test_curves.py:130-196
+CURVE_CAM = {"position": [0.0, 0.0, 2.2], "look_at": [0.0, 0.0, 0.0],
+             "up": [0.0, 1.0, 0.0], "vfov_deg": 35.0}
+CURVE_STEPS, CURVE_LR, CURVE_SOFT = 100, 4e-3, 0.3
+
+
+def _curve_scene(seed=3):
+    """``tests/test_curves.py``'s one random curve (1.6x its radii) over
+    a plane under a point light."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cp = rng.normal(size=(1, 1, 3)) * 0.1 + np.cumsum(
+        rng.normal(size=(1, 4, 3)) * 0.15, axis=1)
+    cp -= cp.mean(axis=(0, 1))
+    return {"hair_material": {"sigma_a": np.array([0.06, 0.1, 0.2]),
+                              "beta_m": 0.3, "beta_n": 0.35},
+            "planes": [{"point": [0, 0, -1.0], "normal": [0, 0, 1.0],
+                        "albedo": [0.4, 0.35, 0.3]}],
+            "point_lights": [{"position": [1.5, 1.5, 2.5],
+                              "intensity": [14.0, 14.0, 14.0]}],
+            "environment": np.array([0.02, 0.02, 0.03]),
+            "curves": {"cp": cp, "r0": np.full(1, 0.048),
+                       "r1": np.full(1, 0.024)}}
+
+
+def curve_inverse(dev, steps=CURVE_STEPS):
+    """Recover a rigid shift of the curve's control points by Adam
+    through the full render (32x32, 2 spp, depth 2, soft silhouettes),
+    the target rendered on the same uniforms. -> (losses, err, err0)."""
+    import numpy as np
+    import torch
+
+    from yhair_tpu_torch.core import scene as tscene
+    from yhair_tpu_torch.core.rng import n_uniform_dims
+    from yhair_tpu_torch.integrator import path
+
+    sc = tscene.from_dict(_curve_scene(), device=dev)
+    cam = tscene.camera_from_dict(CURVE_CAM, device=dev)
+    u = torch.as_tensor(np.random.default_rng(0).random(
+        (32, 32, 2, n_uniform_dims(2))).astype(np.float32), device=dev)
+
+    def render(cp):
+        return path.render(sc._replace(crv_cp=cp), cam, u, max_depth=2,
+                           chunk=512, edge_softness=CURVE_SOFT, device=dev)
+
+    with torch.no_grad():
+        target = render(sc.crv_cp)
+    shift = torch.tensor([0.03, -0.02, 0.0], device=dev)
+    delta = torch.zeros(3, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([delta], lr=CURVE_LR)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = ((render(sc.crv_cp + shift - delta) - target) ** 2).mean()
+        loss.backward()
+        delta.grad = torch.where(torch.isfinite(delta.grad), delta.grad, 0.0)
+        opt.step()
+        losses.append(loss.item())
+    return (losses, float((delta.detach() - shift).norm()),
+            float(shift.norm()))
+
+
+def phase_curves(dev):
+    """Config 1's strand as one first-class curve against the same strand
+    tessellated into 2^CURVE_DEPTH segments (config 1's spec, the
+    reference's gate), then the control-point inverse."""
+    import numpy as np
+
+    from scenes.generators import CONFIGS, _strands_to_segments
+    from yhair_tpu_torch.apps import render as app
+    from yhair_tpu_torch.core import scene as tscene
+    from yhair_tpu_torch.integrator import path
+    from yhair_tpu_torch.ops import build_scene_clusters
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+
+    cfg = CONFIGS[1]
+    scene_d, cam_d = cfg["fn"]()
+    cp = np.array([[[0.0, -0.5, 0.0], [0.25, -0.1, 0.1],
+                    [-0.2, 0.3, -0.05], [0.1, 0.6, 0.0]]])
+    r0, r1 = np.array([0.02]), np.array([0.008])
+    crv = dict(scene_d, curves={"cp": cp, "r0": r0, "r1": r1})
+    crv.pop("segments")
+    tes = dict(scene_d, segments=_strands_to_segments(
+        cp, r0, r1, n_seg=1 << path.CURVE_DEPTH))
+    cam = tscene.camera_from_dict(cam_d, device=dev)
+    imgs, seconds = {}, {}
+    for name, d in (("curve", crv), ("tessellated", tes)):
+        sc, _ = build_scene_clusters(tscene.from_dict(d, device=dev),
+                                     device=dev)
+        for k in ik.LAUNCHES:
+            ik.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        imgs[name] = app.progressive_render(sc, cam, cfg["res"], cfg["res"],
+                                            cfg["spp"], cfg["depth"], seed=0,
+                                            log=None, device=dev)
+        seconds[name] = time.perf_counter() - t0
+    diff = np.abs(imgs["curve"] - imgs["tessellated"]).max(-1)
+    close = float((diff < 1e-2).mean())
+    require(bool(np.isfinite(imgs["curve"]).all()) and close > 0.995,
+            "curves", f"curve against tessellated: {close:.4f} of the "
+                      f"pixels within 1e-2")
+    t0 = time.perf_counter()
+    losses, err, err0 = curve_inverse(dev)
+    inverse_s = time.perf_counter() - t0
+    ok = (all(np.isfinite(losses)) and losses[-1] < 0.6 * losses[0]
+          and err < 0.8 * err0)
+    fields = dict(phase="curves", ok=ok, res=cfg["res"], spp=cfg["spp"],
+                  depth=cfg["depth"], render_seconds=seconds,
+                  close_frac=close, mean_abs_diff=float(diff.mean()),
+                  image_mean=float(imgs["curve"].mean()),
+                  inverse_steps=len(losses), inverse_seconds=inverse_s,
+                  first_loss=losses[0], last_loss=losses[-1], err=err,
+                  err0=err0)
+    require(ok, "curves", json.dumps(fields))
+    emit(**fields)
+
+
+FULL_RES, FULL_SPP, FULL_DEPTH, FULL_SOFT, FULL_RTOL = 16, 2, 2, 0.2, 1e-2
+
+
+def phase_full(dev):
+    """One ``train_step_fn`` step on the all-features scene on the card
+    and on the CPU from the same params and target: finite, the card's
+    loss and gradients within FULL_RTOL of the CPU's."""
+    import numpy as np
+    import torch
+
+    from yhair_tpu_torch import convert
+    from yhair_tpu_torch.apps import render as app
+    from yhair_tpu_torch.parallel import mesh
+
+    start = {"beta_m": np.float32(0.5), "beta_n": np.float32(0.5),
+             "sigma_a": np.full(3, 0.2, np.float32)}
+    sc, cam = full_feature_scene(dev)
+    target = torch.as_tensor(np.float32(app.progressive_render(
+        sc, cam, FULL_RES, FULL_RES, FULL_SPP, FULL_DEPTH, seed=0,
+        edge_softness=FULL_SOFT, log=None, device=dev)))
+    out = {}
+    for name, device, scene, camera in (
+            ("card", dev, sc, cam),
+            ("cpu", torch.device("cpu"), sc.to("cpu"), cam.to("cpu"))):
+        params = convert.params_from_numpy(start, device=device)
+        step = mesh.train_step_fn(FULL_RES, FULL_RES, FULL_SPP,
+                                  max_depth=FULL_DEPTH,
+                                  edge_softness=FULL_SOFT, device=device)
+        t0 = time.perf_counter()
+        loss, grads = step(params, torch.optim.Adam(params.values(), lr=1e-2),
+                           scene, camera, target, mesh.key_seed(1))
+        out[name] = dict(loss=float(loss), seconds=time.perf_counter() - t0,
+                         grads={k: g.cpu().reshape(-1).tolist()
+                                for k, g in grads.items()})
+    card, cpu = out["card"], out["cpu"]
+    vals = [(card["loss"], cpu["loss"])] + [
+        (a, b) for k in start for a, b in zip(card["grads"][k],
+                                              cpu["grads"][k])]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in vals)
+    ok = all(np.isfinite(a) and b != 0 for a, b in vals) and rel <= FULL_RTOL
+    fields = dict(phase="full", ok=ok, res=FULL_RES, spp=FULL_SPP,
+                  depth=FULL_DEPTH, edge_softness=FULL_SOFT,
+                  instances=sc.accel.n_instances, curves=sc.n_curves,
+                  area_lights=sc.n_area_lights, textures=int(
+                      sc.tex_meta.shape[0]), env_map=list(
+                      sc.env_map.shape[:2]), card=card, cpu=cpu,
+                  max_rel_err=rel, rtol=FULL_RTOL)
+    require(ok, "full", json.dumps(fields))
+    emit(**fields)
+
+
 def phase_scene5(dev):
     """Config 5 at its full size: the scene, its clusters and camera."""
     import torch
@@ -780,11 +1208,12 @@ def phase_profile(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
                 return fn(*a, **kw)
         return run
 
-    # the list build and the triangle search are torch ops under labelled
-    # ranges; the kernels are launched through ctypes, which the profiler
-    # does not tie to a range, so they are found by their own names
+    # the list build and the triangle search (nearest and occlusion
+    # queries both run `_search`) are torch ops under labelled ranges; the
+    # kernels are launched through ctypes, which the profiler does not tie
+    # to a range, so they are found by their own names
     layers = {"layer:cluster_lists": (ik, "_block_cluster_lists"),
-              "layer:triangles": (tri, "nearest_hit")}
+              "layer:triangles": (tri, "_search")}
     orig = {label: getattr(mod, name)
             for label, (mod, name) in layers.items()}
     strip()
@@ -906,17 +1335,22 @@ def main(argv=None):
     hit_stats, any_stats = phase_kernels(sc, cam, dev)
     if args.stop_after == "kernels":
         return 0
-    launches = phase_main(sc, cam, dev)
+    launches, _, _ = phase_main(sc, cam, dev)
     if args.stop_after == "main":
         return 0
     phase_train(sc, cam, dev)
     phase_golden(sc, cam, dev)
+    hit_i, any_i, launches_i = phase_inst3(sc, cam, dev)
+    phase_soft3(sc, cam, dev)
+    phase_curves(dev)
+    phase_full(dev)
 
     sc5, cam5 = phase_scene5(dev)
     strip5 = W5 * H5 // STRIP // 2      # the strip through the centre
     hit5, any5 = phase_kernels(sc5, cam5, dev, W5, H5, DEPTH5, strip5,
                                phase="kernels5")
-    launches5 = phase_main(sc5, cam5, dev, W5, H5, DEPTH5, phase="main5")
+    launches5, _, _ = phase_main(sc5, cam5, dev, W5, H5, DEPTH5,
+                                 phase="main5")
     phase_train5(sc5, cam5, dev)
     phase_golden5(sc5, cam5, dev)
     if args.profile:
@@ -929,7 +1363,9 @@ def main(argv=None):
     for suffix, path, lc, stats in (
             ("", "config 3, bench.py workload", launches,
              (hit_stats, any_stats)),
-            (" (config 5)", "config 5, furry bunny", launches5, (hit5, any5))):
+            (" (config 5)", "config 5, furry bunny", launches5, (hit5, any5)),
+            (" (instanced)", "config 3 posed as two instances", launches_i,
+             (hit_i, any_i))):
         records += [
             kernel_record("hit_kernel" + suffix,
                           "yhair_tpu/ops/intersect_kernel.py:186", stats[0],

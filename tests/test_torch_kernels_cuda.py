@@ -310,3 +310,54 @@ def test_config5_gradients_match_the_cpu(cuda):
         "beta_m", "beta_n", "sigma_a[0]", "sigma_a[1]", "sigma_a[2]"]
     for p in pairs:
         assert p["cpu"] != 0 and p["rel_err"] <= chip_smoke.GRAD5_RTOL, p
+
+
+def _small_hairball(cuda):
+    scene_d, cam_d = gen.curly_hairball(n_strands=300, n_seg=8)
+    sc, _ = build_scene_clusters(tscene.from_dict(scene_d, device=cuda),
+                                 device=cuda)
+    return sc, tscene.camera_from_dict(cam_d, device=cuda)
+
+
+def test_instanced_strip_matches_plain(cuda):
+    """The small hairball posed as chip_smoke's two instances (two
+    hair-material rows): every launch of a 4,096-ray strip at depth 3,
+    made on rays in an instance's frame, bit-equal to its plain version,
+    the searches bit-equal to the brute force and the recompute over the
+    canonical segments (``chip_smoke.phase_kernels``, which fails the
+    run otherwise)."""
+    import chip_smoke
+    from yhair_tpu_torch.accel.instanced import build_instanced
+
+    sc, cam = _small_hairball(cuda)
+    hair = type(sc.hair)(*(torch.stack([a, a]) for a in sc.hair))
+    hair = hair._replace(beta_m=hair.beta_m * torch.tensor([1.0, 1.6],
+                                                           device=cuda))
+    sc = sc._replace(hair=hair, accel=build_instanced(
+        sc.accel, chip_smoke.INST_FRAMES, inst_mat=[0, 1], device=cuda))
+    before = dict(ik.LAUNCHES)
+    hit, anyk = chip_smoke.phase_kernels(sc, cam, cuda, width=64, height=64,
+                                         depth=3, strip=0,
+                                         phase="kernels_instanced")
+    assert all(ik.LAUNCHES[k] > before[k] for k in before)
+    # both instances are searched at every bounce
+    assert hit["launches"] >= 6 and anyk["launches"] >= 12
+    assert hit["max_abs_err"] == 0.0
+
+
+def test_soft_edge_gradients_match_the_cpu(cuda):
+    """edge_softness 0.2 on the small hairball: d mean(L) / d radius
+    scale and / d one segment's p0 of a 64x64 window at depth 2 through
+    both kernels, within ``chip_smoke.SOFT_RTOL`` of the same rays on the
+    CPU (``chip_smoke.soft_gradient_check``, which fails the run past
+    it). A 16x16 window's radius gradient is a sum that nearly cancels,
+    which one path that takes another branch on the card moves by 4%."""
+    import chip_smoke
+
+    sc, cam = _small_hairball(cuda)
+    before = dict(ik.LAUNCHES)
+    out = chip_smoke.soft_gradient_check(sc, cam, cuda, width=128,
+                                         height=128, window=64, depth=2)
+    assert all(ik.LAUNCHES[k] > before[k] for k in before)
+    for v in out.values():
+        assert v["rel_err"] <= chip_smoke.SOFT_RTOL, v

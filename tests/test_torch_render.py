@@ -25,6 +25,8 @@ from yhair_tpu.core import scene as jscene
 from yhair_tpu.integrator import path as jpath
 from yhair_tpu.ops import build_scene_clusters as jbuild_scene_clusters
 from yhair_tpu_torch import convert
+from yhair_tpu_torch.accel import instanced
+from yhair_tpu_torch.accel.instanced import build_instanced
 from yhair_tpu_torch.apps import invert
 from yhair_tpu_torch.apps import render as app
 from yhair_tpu_torch.core import scene as tscene
@@ -139,6 +141,7 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(hairball):
         pytest.skip("a card is present: the default device is usable")
     scene_d, cam_d, sc2, cam = hairball
     u = torch.as_tensor(_uniforms(2))
+    ic = build_instanced(sc2.accel, [np.eye(4, 3)], device="cpu")
     calls = [
         lambda: resolve_device(None),
         lambda: tscene.from_dict(scene_d),
@@ -150,6 +153,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(hairball):
         lambda: app.main(["--config", "1", "--output", "unused.npy"]),
         lambda: mesh.train_step_fn(RES, RES, 1, DEPTH),
         lambda: invert.main(["--config", "1", "--out", "unused.json"]),
+        lambda: build_instanced(sc2.accel, [np.eye(4, 3)]),
+        lambda: instanced.make_nearest_fn(ic),
+        lambda: instanced.make_occluded_fn(ic),
+        lambda: convert.instanced_from_numpy(convert.flat_fields(ic)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -158,13 +165,18 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(hairball):
 
 @pytest.mark.parametrize("feature", ["curves", "hair_materials"])
 def test_from_dict_refuses_unsupported_features(hairball, feature):
+    """Curves and hair-material tables render now
+    (``tests/test_torch_curves.py``, ``tests/test_torch_hair_materials.py``);
+    what the port cannot render is a malformed one: control points that
+    are not (C, 4, 3), a table without its per-segment ids."""
     scene_d = dict(hairball[0])
     extra = {
-        "curves": {"curves": {"cp": np.zeros((1, 4, 3))}},
+        "curves": {"curves": {"cp": np.zeros((1, 3, 3)), "r0": 0.01,
+                              "r1": 0.01}},
         "hair_materials": {"hair_materials": [scene_d["hair_material"]]},
     }[feature]
     scene_d.update(extra)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tscene.from_dict(scene_d, device="cpu")
 
 

@@ -4,15 +4,18 @@ the differentiable renderer.
 
   python -m yhair_tpu_torch.apps.invert --config 3 --resolution 64 \\
       --spp 4 --steps 60 --params beta_m,beta_n,sigma_a \\
-      [--target target.pfm] [--pixel-batch 4096] [--device cuda]
+      [--target target.pfm] [--pixel-batch 4096] [--edge-softness 0.3] \\
+      [--device cuda]
 
 Without --target, the target image is rendered from the scene's true
 parameters on the reference's uniforms for --seed, and the optimisation
 starts from --init-scale times the true values (the synthetic-recovery
-benchmark). Each step draws its uniforms from its own seed word
-(``step_seed``) and, with --pixel-batch, its tiles from a
-``torch.Generator`` seeded with --seed; neither is the reference's
-threefry stream. Writes the recovered and true values as JSON.
+benchmark); the target renders with the same --edge-softness as the
+steps, so soft silhouettes bias no parameter. Each step draws its
+uniforms from its own seed word (``step_seed``) and, with
+--pixel-batch, its tiles from a ``torch.Generator`` seeded with --seed;
+neither is the reference's threefry stream. Writes the recovered and
+true values as JSON.
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ def build_parser():
     p.add_argument("--pixel-batch", type=int, default=None,
                    help="stochastic minibatch: pixels sampled per step "
                         "(whole 128-pixel tiles; default: full image)")
+    p.add_argument("--edge-softness", type=float, default=0.0,
+                   help="soft strand silhouettes: enables the boundary "
+                        "term of geometry gradients (try 0.3)")
     p.add_argument("--init-scale", type=float, default=1.8,
                    help="multiplicative perturbation of the initial params")
     p.add_argument("--seed", type=int, default=0)
@@ -79,8 +85,9 @@ def main(argv=None):
         target = load_target(args.target, res).to(dev)
     else:
         target = torch.as_tensor(np.float32(app.progressive_render(
-            sc, cam, res, res, spp, depth, seed=args.seed, log=None,
-            device=dev)), device=dev)
+            sc, cam, res, res, spp, depth, seed=args.seed,
+            edge_softness=args.edge_softness, log=None, device=dev)),
+            device=dev)
         print("rendered synthetic target from true parameters")
 
     names = [s.strip() for s in args.params.split(",") if s.strip()]
@@ -89,7 +96,8 @@ def main(argv=None):
         {k: true_vals[k] * args.init_scale for k in names}, device=dev)
     opt = torch.optim.Adam(params.values(), lr=args.lr)
     step = mesh.train_step_fn(res, res, spp, max_depth=depth,
-                              pixel_batch=args.pixel_batch, device=dev)
+                              pixel_batch=args.pixel_batch,
+                              edge_softness=args.edge_softness, device=dev)
     gen = torch.Generator().manual_seed(args.seed)
 
     t0 = time.time()

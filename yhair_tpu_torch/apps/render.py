@@ -46,7 +46,8 @@ def load_pfm(path):
 @torch.no_grad()
 def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
                        sampler="path", max_rays_per_call=65536,
-                       return_alive=False, log=print, device=None):
+                       edge_softness=0.0, return_alive=False, log=print,
+                       device=None):
     """Render spp samples, one per pass, each pass in equal tile-aligned
     strips of at most max_rays_per_call rays; accumulate in float64.
     No graph is kept, even for a scene with trainable leaves.
@@ -76,6 +77,7 @@ def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
             sid = torch.full_like(pid, s)
             out = mesh.trace_pixels(scene, cam, width, height, pid, sid,
                                     seed_word, max_depth, sampler=sampler,
+                                    edge_softness=edge_softness,
                                     return_alive=return_alive, device=dev)
             if return_alive:
                 out, (a_in, a_sh) = out

@@ -1,9 +1,9 @@
 """Hand the reference's scene state to the port.
 
-The tests turn a ``yhair_tpu`` Scene, Clusters or parameter dict into
-numpy arrays (``{name: np.asarray(leaf)}``, see ``flat_fields``) and
-build the port's counterpart from them here, so both packages compute on
-the same arrays.
+The tests turn a ``yhair_tpu`` Scene, Clusters, InstancedClusters or
+parameter dict into numpy arrays (``{name: np.asarray(leaf)}``, see
+``flat_fields``) and build the port's counterpart from them here, so
+both packages compute on the same arrays.
 Names are the reference's field paths joined with dots ("segments.p0",
 "hair.beta_m", "accel.tc", ...); static ints ("accel.n_clusters") stay
 ints. This module imports no JAX: ``np.asarray`` reads any array.
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .accel.instanced import InstancedClusters
 from .bsdf.hair import HairMaterial
 from .bsdf.surface import SurfaceMaterial
 from .core.scene import Scene
@@ -22,8 +23,9 @@ from .geometry.segments import Segments
 from .geometry.triangles import Triangles
 from .ops.clusters import Clusters
 
-# leading-dim-nonzero fields of features this slice does not render
-_UNSUPPORTED = {"crv_cp": "Bezier curves"}
+# {field: feature} of the reference's features the port does not render
+# (refused when the field's leading dimension is non-zero): none left
+_UNSUPPORTED: dict = {}
 
 
 def flat_fields(tree, prefix="") -> dict:
@@ -53,14 +55,24 @@ def clusters_from_numpy(fields: dict, device=None) -> Clusters:
                     cluster_size=int(fields["cluster_size"]))
 
 
+def instanced_from_numpy(fields: dict, device=None) -> InstancedClusters:
+    """InstancedClusters from {cl.s0, ..., cl.cluster_size, R, t, R_inv,
+    scale, inst_mat, bmin, bmax}."""
+    dev = resolve_device(device)
+    cl = clusters_from_numpy({k[len("cl."):]: v for k, v in fields.items()
+                              if k.startswith("cl.")}, dev)
+    return InstancedClusters(cl, *(
+        torch.as_tensor(np.ascontiguousarray(fields[k]), device=dev)
+        for k in InstancedClusters._fields[1:]))
+
+
 def scene_from_numpy(fields: dict, device=None) -> Scene:
-    """Scene from the reference's flattened fields; raises
-    NotImplementedError for features this slice does not render."""
+    """Scene from the reference's flattened fields (hair leaves scalar or
+    table-shaped, curves, a Clusters or InstancedClusters accel); raises
+    NotImplementedError for a feature in ``_UNSUPPORTED``."""
     dev = resolve_device(device)
     found = [what for k, what in _UNSUPPORTED.items()
              if k in fields and np.shape(fields[k])[0]]
-    if np.ndim(fields["hair.beta_m"]) != 0:
-        found.append("per-shape hair materials")
     if found:
         raise NotImplementedError(
             "yhair_tpu_torch does not render these scene features yet: "
@@ -70,10 +82,12 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
         return torch.as_tensor(np.ascontiguousarray(fields[k]), device=dev)
 
     accel = None
-    if "accel.tc" in fields:
-        accel = clusters_from_numpy(
-            {k[len("accel."):]: v for k, v in fields.items()
-             if k.startswith("accel.")}, dev)
+    sub = {k[len("accel."):]: v for k, v in fields.items()
+           if k.startswith("accel.")}
+    if "cl.tc" in sub:
+        accel = instanced_from_numpy(sub, dev)
+    elif "tc" in sub:
+        accel = clusters_from_numpy(sub, dev)
     nested = {"segments": Segments, "hair": HairMaterial,
               "surf_mat": SurfaceMaterial, "tris": Triangles}
 

@@ -1,13 +1,13 @@
 """Scene tensors (``yhair_tpu/core/scene.py``).
 
-Hair segments with one global hair material, the surface-material table
-(spheres, then planes, then meshes), spheres, planes, triangle meshes,
-point lights, area lights (emissive spheres and mesh triangles), a
-constant environment, an equirectangular environment map with its
-sampling tables, textures, the per-segment material id and the
-acceleration structure. ``from_dict`` refuses Bezier curves and
-per-shape hair materials: those slices are not ported yet, and a render
-without them would be a different image.
+Hair segments with one global hair material or a per-shape table of
+them (``hair_materials``, indexed by the per-segment material id), the
+surface-material table (spheres, then planes, then meshes), spheres,
+planes, triangle meshes, point lights, area lights (emissive spheres and
+mesh triangles), a constant environment, an equirectangular environment
+map with its sampling tables, textures, first-class cubic Bezier curves
+and the acceleration structure (``Clusters``, ``InstancedClusters`` or
+None for the brute-force scan).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ LUM = np.array([0.2126, 0.7152, 0.0722])
 
 class Scene(NamedTuple):
     segments: Segments
-    hair: HairMaterial         # one global material (0-dim / (3,) leaves)
+    hair: HairMaterial         # one global material (0-dim / (3,) leaves),
+                               # or a table: (Mh,) / (Mh, 3) leaves
     seg_mat_id: torch.Tensor   # (S,) int32 hair-material index per segment
     surf_mat: SurfaceMaterial  # (M, ...); sphere i -> i, plane j -> NS + j,
                                # mesh k -> NS + NP + k
@@ -64,7 +65,14 @@ class Scene(NamedTuple):
     env_sin: torch.Tensor      # (H,) sin(theta) per row
     tex_data: torch.Tensor     # (P, 3) flattened texel table (core/texture)
     tex_meta: torch.Tensor     # (T, 3) int32 (offset, H, W); (0, 3) = none
-    accel: object = None       # ops.clusters.Clusters, or None -> brute force
+    # first-class cubic Bezier curves, intersected directly
+    # (geometry/bezier.py), so gradients reach the control points
+    crv_cp: torch.Tensor = None      # (C, 4, 3); (0, 4, 3) = none
+    crv_r0: torch.Tensor = None      # (C,) root radius
+    crv_r1: torch.Tensor = None      # (C,) tip radius
+    crv_mat_id: torch.Tensor = None  # (C,) int32 hair-material table id
+    accel: object = None       # Clusters, InstancedClusters, or None ->
+                               # the brute-force scan
 
     @property
     def n_spheres(self):
@@ -85,6 +93,10 @@ class Scene(NamedTuple):
     @property
     def n_area_lights(self):
         return self.al_kind.shape[0]
+
+    @property
+    def n_curves(self):
+        return 0 if self.crv_cp is None else self.crv_cp.shape[0]
 
     def to(self, device):
         """The scene with every tensor on ``device`` (no copy if there)."""
@@ -174,24 +186,53 @@ def area_lights(scene: dict, mats: list):
     return al
 
 
-def _present(v) -> bool:
-    return v is not None and (np.size(v) > 0 if isinstance(v, np.ndarray)
-                              else bool(v))
+def _hair(scene: dict, n_segments: int):
+    """(HairMaterial leaves as float32 numpy, per-segment material id).
+    ``hair_materials`` (a list of materials) with ``segment_mat_id`` make
+    a table: the leaves get a leading (Mh,) dimension."""
+    ms = scene.get("hair_materials")
+    if not ms:
+        m = scene["hair_material"]
+        return (dict(sigma_a=m["sigma_a"], beta_m=m["beta_m"],
+                     beta_n=m["beta_n"], alpha=m.get("alpha", np.deg2rad(2.0)),
+                     eta=m.get("eta", 1.55)),
+                np.zeros(n_segments, np.int32))
+    if scene.get("segment_mat_id") is None:
+        raise ValueError("hair_materials needs segment_mat_id")
+    mid = np.asarray(scene["segment_mat_id"], np.int32)
+    if mid.shape != (n_segments,):
+        raise ValueError(f"segment_mat_id is {mid.shape}, expected "
+                         f"({n_segments},)")
+    return (dict(sigma_a=np.stack([np.asarray(m["sigma_a"]) for m in ms]),
+                 beta_m=[m["beta_m"] for m in ms],
+                 beta_n=[m["beta_n"] for m in ms],
+                 alpha=[m.get("alpha", np.deg2rad(2.0)) for m in ms],
+                 eta=[m.get("eta", 1.55) for m in ms]), mid)
 
 
-def _refuse_unsupported(scene: dict):
-    found = [k for k in ("curves", "hair_materials") if _present(scene.get(k))]
-    if found:
-        raise NotImplementedError(
-            "yhair_tpu_torch does not render these scene features yet: "
-            + ", ".join(found))
+def _curves(curves) -> dict:
+    """scene["curves"] = {"cp": (C, 4, 3), "r0", "r1": (C,) or scalars,
+    "mat_id": optional (C,) hair-material ids} -> float64/int32 numpy."""
+    if not curves:
+        return {"cp": np.zeros((0, 4, 3)), "r0": np.zeros(0),
+                "r1": np.zeros(0), "mat_id": np.zeros(0, np.int32)}
+    cp = np.asarray(curves["cp"], np.float64)
+    if cp.ndim != 3 or cp.shape[1:] != (4, 3):
+        raise ValueError(f"curve control points are {cp.shape}, expected "
+                         f"(C, 4, 3)")
+    c = cp.shape[0]
+    mid = curves.get("mat_id")
+    return {"cp": cp,
+            "r0": np.broadcast_to(np.asarray(curves["r0"], np.float64), (c,)),
+            "r1": np.broadcast_to(np.asarray(curves["r1"], np.float64), (c,)),
+            "mat_id": (np.zeros(c, np.int32) if mid is None
+                       else np.asarray(mid, np.int32))}
 
 
 def from_dict(scene: dict, device=None) -> Scene:
     """Oracle-format scene dict (``scenes.generators``) -> Scene on
     ``device`` (the card unless ``device="cpu"``)."""
     dev = resolve_device(device)
-    _refuse_unsupported(scene)
     spheres = scene.get("spheres") or []
     planes = scene.get("planes") or []
     meshes = scene.get("meshes") or []
@@ -234,16 +275,12 @@ def from_dict(scene: dict, device=None) -> Scene:
     tex_data, tex_meta = texture.flatten_textures(
         [tx["data"] for tx in scene.get("textures") or []], device=dev)
 
-    m = scene["hair_material"]
-    hair = HairMaterial.make(
-        sigma_a=np.asarray(m["sigma_a"]), beta_m=m["beta_m"],
-        beta_n=m["beta_n"], alpha=m.get("alpha", np.deg2rad(2.0)),
-        eta=m.get("eta", 1.55), device=dev)
+    hair, seg_mat_id = _hair(scene, np.asarray(p0).shape[0])
+    crv = _curves(scene.get("curves"))
     return Scene(
         segments=Segments(t(p0), t(p1), t(r0), t(r1)),
-        hair=hair,
-        seg_mat_id=torch.zeros((np.asarray(p0).shape[0],), dtype=torch.int32,
-                               device=dev),
+        hair=HairMaterial.make(**hair, device=dev),
+        seg_mat_id=i32(seg_mat_id),
         surf_mat=SurfaceMaterial.make(mats, device=dev),
         sph_center=t([s["center"] for s in spheres], (0, 3)),
         sph_radius=t([s["radius"] for s in spheres], (0,)),
@@ -264,6 +301,8 @@ def from_dict(scene: dict, device=None) -> Scene:
         env_cdf=t(env["cdf"] if env else np.zeros(0)),
         env_sin=t(env["sin_t"] if env else np.zeros(0)),
         tex_data=tex_data, tex_meta=tex_meta,
+        crv_cp=t(crv["cp"]), crv_r0=t(crv["r0"]), crv_r1=t(crv["r1"]),
+        crv_mat_id=i32(crv["mat_id"]),
     )
 
 

@@ -6,7 +6,10 @@ per-triangle material id. The nearest-hit search is torch ops over
 chunks of rays and of triangles, so its (rays, triangles) temporaries
 stay bounded (``RAY_CHUNK`` x ``chunk``); the winner is the first
 triangle of least t, as the reference's per-chunk ``argmin`` gives.
-Shading attributes are recomputed for the winning triangle only.
+The search is discrete and keeps no autograd graph: the winner's t is
+recomputed on the gathered triangle (the reference differentiates
+through its scan; the value and the gradient are the same). Shading
+attributes are recomputed for the winning triangle only.
 """
 
 from __future__ import annotations
@@ -82,9 +85,9 @@ class Triangles(NamedTuple):
                    t(np.concatenate(mids)))
 
 
-def _mt_hit(o, d, v0, v1, v2, t_min, t_max):
-    """Moller-Trumbore over broadcastable (rays, tris). -> (t or INF,
-    u, v)."""
+def _mt(o, d, v0, v1, v2):
+    """Moller-Trumbore over broadcastable (rays, tris), untested. ->
+    (t, u, v, det)."""
     e1 = v1 - v0
     e2 = v2 - v0
     pv = torch.linalg.cross(d, e2)
@@ -95,14 +98,21 @@ def _mt_hit(o, d, v0, v1, v2, t_min, t_max):
     qv = torch.linalg.cross(tv, e1)
     v = (d * qv).sum(-1) * inv
     t = (e2 * qv).sum(-1) * inv
+    return t, u, v, det
+
+
+def _mt_hit(o, d, v0, v1, v2, t_min, t_max):
+    """Moller-Trumbore over broadcastable (rays, tris). -> (t or INF,
+    u, v)."""
+    t, u, v, det = _mt(o, d, v0, v1, v2)
     ok = ((torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1)
           & (t > t_min) & (t < t_max))
     return torch.where(ok, t, INF), u, v
 
 
-def nearest_hit(o, d, tris: Triangles, t_min=1e-4, t_max=INF, chunk=2048):
-    """Closest hit over all triangles. o, d: (N, 3). -> (t (N,), idx (N,)
-    int64, hit (N,) bool); among equal least t the first triangle wins."""
+@torch.no_grad()
+def _search(o, d, tris: Triangles, t_min, t_max, chunk):
+    """(t or INF, idx int64) of the first triangle of least t."""
     n, total = o.shape[0], tris.n_triangles
     t_out, i_out = [], []
     for lo in range(0, n, RAY_CHUNK):
@@ -126,13 +136,25 @@ def nearest_hit(o, d, tris: Triangles, t_min=1e-4, t_max=INF, chunk=2048):
     t = torch.cat(t_out) if t_out else o.new_zeros((0,))
     idx = torch.cat(i_out) if i_out else torch.zeros(
         (0,), dtype=torch.int64, device=o.device)
-    return t, idx, t < INF
+    return t, idx
+
+
+def nearest_hit(o, d, tris: Triangles, t_min=1e-4, t_max=INF, chunk=2048):
+    """Closest hit over all triangles. o, d: (N, 3). -> (t (N,), idx (N,)
+    int64, hit (N,) bool); among equal least t the first triangle wins.
+    t is differentiable in the rays and the winning triangle."""
+    t, idx = _search(o, d, tris, t_min, t_max, chunk)
+    hit = t < INF
+    if not tris.n_triangles:
+        return t, idx, hit
+    t_re, _, _, _ = _mt(o, d, tris.v0[idx], tris.v1[idx], tris.v2[idx])
+    return torch.where(hit, t_re, INF), idx, hit
 
 
 def occluded(o, d, dist, tris: Triangles, t_min=1e-4, chunk=2048):
     """Any hit within [t_min, dist * (1 - 1e-4)) (shadow rays)."""
-    t, _, hit = nearest_hit(o, d, tris, t_min=t_min, chunk=chunk)
-    return hit & (t < dist * (1.0 - 1e-4))
+    t, _ = _search(o, d, tris, t_min, INF, chunk)
+    return t < dist * (1.0 - 1e-4)
 
 
 class TriangleShade(NamedTuple):

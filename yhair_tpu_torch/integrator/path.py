@@ -6,22 +6,27 @@ map, area lights) -> BSDF sample -> Russian roulette }, over a fixed
 depth with alive masks; the reference's ``lax.scan`` is a Python loop
 here. It consumes the oracle's uniforms layout and matches
 ``yhair_tpu``'s ``trace`` (samplers "path", "naive" and "eyelight") on
-scenes of hair segments, spheres, planes, triangle meshes, point and
-area lights, a constant environment or an environment map, and
-textures. Light samples and BSDF samples are combined by the power
-heuristic; each bounce carries its BSDF sample's pdf and delta flag to
-the next, in the rays' own order (only the search sees the Morton sort).
+scenes of hair segments (flat, clustered or posed instances of one
+cluster build), first-class Bezier curves, per-shape hair materials,
+spheres, planes, triangle meshes, point and area lights, a constant
+environment or an environment map, and textures, with hard or soft
+strand silhouettes (``edge_softness``). Light samples and BSDF samples
+are combined by the power heuristic; each bounce carries its BSDF
+sample's pdf and delta flag to the next, in the rays' own order (only
+the search sees the Morton sort).
 
-The hit search is discrete and runs on detached rays; the winner's t is
-then recomputed with the closed form ``_closest_approach``
-(``where(hit, s_re, t)``), so no kernel needs a backward. On the card
-the CUDA kernels' t is bit-equal to that recompute, which is what keeps
-the two in step.
+The hit searches are discrete and run on detached rays; the winner is
+then recomputed in closed form from the live geometry (the segment's,
+the posed instance's or the curve's chord, ``where(hit, s_re, t)``), so
+no kernel needs a backward. On the card the CUDA kernels' t is bit-equal
+to the recompute of a flat scene, which keeps the two in step.
 
-Gradients (with respect to the hair parameters) use detached sampling,
-as the reference does: sampled directions, their pdf and Russian
-roulette's continuation probability are detached, and the throughput
-f |cos| / pdf carries the gradient.
+Gradients use detached sampling, as the reference does: sampled
+directions, their pdf and Russian roulette's continuation probability
+are detached, and the throughput f |cos| / pdf carries the gradient to
+the hair parameters and, through the recomputed hit, to strand
+endpoints, radii and control points. Soft silhouettes add the boundary
+term the detached hit test drops (see ``trace``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..accel import instanced
+from ..accel.instanced import InstancedClusters
 from ..bsdf import hair as th
 from ..bsdf import surface as ts
 from ..core.camera import Camera, camera_rays
@@ -40,6 +47,7 @@ from ..core.safemath import safe_normalize
 from ..core.scene import Scene
 from ..core.texture import apply_textures, sample_bilinear
 from ..device import resolve_device
+from ..geometry import bezier as bez
 from ..geometry import segments as seg
 from ..geometry import triangles as tri
 from ..ops import intersect_kernel as ik
@@ -47,6 +55,9 @@ from ..ops.clusters import Clusters
 
 INF = seg.INF
 RR_START = 3
+# subdivision depth of first-class Bezier curves (2^3 chords per curve,
+# the tessellation of scenes.generators)
+CURVE_DEPTH = 3
 
 
 class Hit(NamedTuple):
@@ -64,6 +75,7 @@ class Hit(NamedTuple):
     h: torch.Tensor         # (N,)
     radius: torch.Tensor    # (N,)
     uv: torch.Tensor        # (N, 2) texture coordinates (surface hits)
+    hair_mid: torch.Tensor  # (N,) int32 hair-material table index
 
 
 def _permuted(fn, perm, *args):
@@ -85,12 +97,14 @@ def _permuted(fn, perm, *args):
 
 
 def _nearest(scene: Scene, o, d, chunk, perm=None):
-    """Segment search: the cluster kernels through scene.accel, else the
-    brute-force scan. The search is a discrete argmin: it sees detached
-    rays."""
+    """Segment search: the cluster kernels through scene.accel (flat or
+    instanced), else the brute-force scan. The search is a discrete
+    argmin: it sees detached rays."""
     o, d = o.detach(), d.detach()
     if isinstance(scene.accel, Clusters):
         fn = ik.make_nearest_fn(scene.accel, device=o.device)
+    elif isinstance(scene.accel, InstancedClusters):
+        fn = instanced.make_nearest_fn(scene.accel, device=o.device)
     else:
         def fn(o_, d_):
             return seg.nearest_hit(o_, d_, scene.segments, chunk=chunk)
@@ -129,16 +143,74 @@ def _sphere_uv(n):
          torch.acos(torch.clamp(n[:, 1], -1.0, 1.0)) / math.pi], -1)
 
 
+def _curve_hit(scene: Scene, o, d, chunk):
+    """Detached nearest curve hit: (t, curve, u, hit)."""
+    return bez.nearest_hit(o.detach(), d.detach(), scene.crv_cp.detach(),
+                           scene.crv_r0.detach(), scene.crv_r1.detach(),
+                           depth=CURVE_DEPTH, chunk=min(chunk, 512))
+
+
 def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
-    """Closest hit over hair segments, spheres, planes and triangles."""
+    """Closest hit over hair segments, curves, spheres, planes and
+    triangles."""
     n = o.shape[0]
     t_seg, idx, hit_seg = _nearest(scene, o, d, chunk, perm)
     t_seg, idx = t_seg.detach(), idx.detach()
-    segs = scene.segments
-    # the search is discrete: recompute the winner's t in closed form,
-    # differentiably (bit-equal to the CUDA kernels' t on the card)
-    s_re, _, _ = seg._closest_approach(o, d, segs.p0[idx], segs.p1[idx])
-    t_seg = torch.where(hit_seg, s_re, t_seg)
+    # the searches are discrete: each winner is recomputed below from the
+    # live geometry, as the segment the shading reads (segs_view[idx_view])
+    if isinstance(scene.accel, InstancedClusters):
+        # the canonical winner posed in world space
+        p0, p1, r0, r1, hair_mid = instanced.gather_world_segments(
+            scene.accel, scene.segments, idx)
+        segs_view = seg.Segments(p0, p1, r0, r1)
+        idx_view = torch.arange(n, device=o.device)
+    else:
+        segs_view, idx_view = scene.segments, idx
+        if scene.seg_mat_id.shape[0]:
+            hair_mid = scene.seg_mat_id[torch.clamp(
+                idx.long(), 0, scene.seg_mat_id.shape[0] - 1)]
+        else:   # no strand segments to look up
+            hair_mid = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    if scene.n_curves:
+        # the winning chord, re-evaluated from the control points
+        t_c, cidx, u_c, hit_c = _curve_hit(scene, o, d, chunk)
+        crv_win = hit_c & (~hit_seg | (t_c < t_seg))
+        n_leaf = 1 << CURVE_DEPTH
+        leaf = torch.clamp((u_c * n_leaf).to(torch.int32), 0, n_leaf - 1)
+        ta = leaf.to(o.dtype) / n_leaf
+        tb = (leaf + 1).to(o.dtype) / n_leaf
+        cpc = scene.crv_cp[cidx]
+        cr0, cr1 = scene.crv_r0[cidx], scene.crv_r1[cidx]
+        if segs_view.p0.shape[0]:
+            sp0, sp1 = segs_view.p0[idx_view], segs_view.p1[idx_view]
+            sr0, sr1 = segs_view.r0[idx_view], segs_view.r1[idx_view]
+        else:   # curves only: a non-degenerate placeholder (a zero-length
+            # segment NaNs the frame's gradient through unselected lanes)
+            sp0 = o.new_zeros((n, 3))
+            sp1 = sp0 + o.new_tensor([[1.0, 0.0, 0.0]])
+            sr0 = sr1 = o.new_zeros((n,))
+        cw = crv_win[:, None]
+        # the radius lerps along the global curve parameter
+        segs_view = seg.Segments(
+            torch.where(cw, bez.bezier_point(cpc, ta), sp0),
+            torch.where(cw, bez.bezier_point(cpc, tb), sp1),
+            torch.where(crv_win, cr0 + (cr1 - cr0) * ta, sr0),
+            torch.where(crv_win, cr0 + (cr1 - cr0) * tb, sr1))
+        idx_view = torch.arange(n, device=o.device)
+        hair_mid = torch.where(crv_win, scene.crv_mat_id[cidx], hair_mid)
+        t_seg = torch.where(crv_win, t_c, t_seg)
+        hit_seg = hit_seg | crv_win
+    if segs_view.p0.shape[0]:
+        # differentiable in the geometry (bit-equal to the CUDA kernels'
+        # t on the card for flat clusters)
+        s_re, _, _ = seg._closest_approach(o, d, segs_view.p0[idx_view],
+                                           segs_view.p1[idx_view])
+        t_seg = torch.where(hit_seg, s_re, t_seg)
+    else:   # no strand geometry at all: a non-degenerate placeholder
+        segs_view = seg.Segments(o.new_zeros((1, 3)),
+                                 o.new_tensor([[1.0, 0.0, 0.0]]),
+                                 o.new_zeros((1,)), o.new_zeros((1,)))
+        idx_view = torch.zeros((n,), dtype=torch.int64, device=o.device)
 
     best_t = torch.where(hit_seg, t_seg, INF)
     mat = torch.where(hit_seg, 0, -1).to(torch.int32)
@@ -205,7 +277,8 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
 
     hit = best_t < INF
     is_hair = hit & (mat == 0)
-    sh = seg.shade_info(o, d, torch.where(is_hair, best_t, 0.0), idx, segs)
+    sh = seg.shade_info(o, d, torch.where(is_hair, best_t, 0.0), idx_view,
+                        segs_view)
     pos = o + torch.where(hit, best_t, 0.0)[:, None] * d
     return Hit(hit=hit, t=torch.where(hit, best_t, INF), mat=mat,
                mat_id=mat_id, light_id=light_id,
@@ -213,7 +286,8 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
                normal=normal, gnormal=gnormal, tangent=sh.tangent,
                frame_y=sh.frame_y, frame_z=sh.frame_z,
                h=torch.where(is_hair, sh.h, 0.0),
-               radius=torch.where(is_hair, sh.radius, 0.0), uv=uv)
+               radius=torch.where(is_hair, sh.radius, 0.0), uv=uv,
+               hair_mid=hair_mid)
 
 
 def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
@@ -224,9 +298,16 @@ def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
     if isinstance(scene.accel, Clusters):
         occ = _permuted(ik.make_occluded_fn(scene.accel, device=o.device),
                         perm, o, d, limit)
+    elif isinstance(scene.accel, InstancedClusters):
+        occ = _permuted(instanced.make_occluded_fn(scene.accel,
+                                                   device=o.device),
+                        perm, o, d, limit)
     else:
         t_seg, _, hit_seg = _nearest(scene, o, d, chunk, perm)
         occ = hit_seg & (t_seg < limit)
+    if scene.n_curves:
+        t_c, _, _, hit_c = _curve_hit(scene, o, d, chunk)
+        occ = occ | (hit_c & (t_c < limit))
     if scene.n_spheres:
         occ = occ | (_sphere_t(scene, o, d).amin(-1) < limit)
     if scene.n_planes:
@@ -266,13 +347,23 @@ def _ray_sort_perm(o, d, alive, lo, inv_ext):
 def _sort_bounds(scene: Scene):
     """Box of the real segments for the Morton sort. The cluster padding
     segments (at 1e8) are left out: the reference's bounds include them,
-    which collapses every origin into Morton cell 0 (octant-only sort)."""
+    which collapses every origin into Morton cell 0 (octant-only sort).
+    For instances, the canonical box's bounding sphere posed by every
+    frame, as the reference does (only the sort's scale, never a
+    result)."""
     p0, p1 = scene.segments.p0.detach(), scene.segments.p1.detach()
-    if isinstance(scene.accel, Clusters):
-        real = scene.accel.seg_index >= 0
+    ic = scene.accel
+    cl = ic.cl if isinstance(ic, InstancedClusters) else ic
+    if isinstance(cl, Clusters):
+        real = cl.seg_index >= 0
         p0, p1 = p0[real], p1[real]
     lo = torch.minimum(p0.amin(0), p1.amin(0))
     hi = torch.maximum(p0.amax(0), p1.amax(0))
+    if isinstance(ic, InstancedClusters):
+        r = 0.87 * torch.linalg.norm(hi - lo)
+        ctr = instanced._apply(ic.R, 0.5 * (lo + hi)) + ic.t
+        rad = (r * ic.scale)[:, None]
+        lo, hi = (ctr - rad).amin(0), (ctr + rad).amax(0)
     return lo, 1.0 / torch.clamp(hi - lo, min=1e-6)
 
 
@@ -313,6 +404,16 @@ def _area_light_pdf_sa(scene: Scene, el, pos, lpos, lnrm):
 def _mis(a, b):
     """The power heuristic's weight of the strategy with pdf a."""
     return a ** 2 / torch.clamp(a ** 2 + b ** 2, min=1e-30)
+
+
+def _hair_mat_at(scene: Scene, hair_mid):
+    """Each ray's hair material: the table rows of hair_mid when the
+    scene has a per-shape table; one material's leaves broadcast as
+    they are."""
+    if scene.hair.beta_m.ndim == 0:
+        return scene.hair
+    hair_mid = hair_mid.long()
+    return type(scene.hair)(*(a[hair_mid] for a in scene.hair))
 
 
 def _diffuse_frame(nrm):
@@ -360,14 +461,16 @@ def trace_eyelight(scene: Scene, o, d, chunk=2048):
     sp = _surface_at(scene, hs)
     is_hair, fx, fy, fz = _shading_frame(hs, d)
     wo = _to_local(-d, fx, fy, fz)
-    f_hair = th.hair_f(scene.hair, hs.h, wo, wo) * torch.abs(wo[:, 2:3])
+    f_hair = th.hair_f(_hair_mat_at(scene, hs.hair_mid), hs.h, wo,
+                       wo) * torch.abs(wo[:, 2:3])
     f_surf = ts.surface_f(sp, wo, wo) * torch.abs(wo[:, 2:3]) + sp.emission
     f = torch.where(is_hair[:, None], f_hair, f_surf) * math.pi
     return torch.where(hs.hit[:, None], f, scene.env.expand_as(f))
 
 
 def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
-          sampler="path", sort_rays=None, return_alive=False, device=None):
+          sampler="path", sort_rays=None, edge_softness=0.0,
+          return_alive=False, device=None):
     """Path-trace a ray batch.
 
     o, d: (N, 3); uniforms: (N, n_uniform_dims(max_depth)). -> L (N, 3).
@@ -377,6 +480,15 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
     sort_rays: sort each bounce's search by Morton cell (see
     ``_ray_sort_perm``; the image is bit-identical either way). None =
     on for large batches over large segment sets.
+    edge_softness: > 0 gives strands soft silhouettes, the boundary term
+    of geometry gradients. A hair hit whose width offset |h| lies in the
+    outer (1 - edge_softness, 1] band survives with probability alpha =
+    (1 - |h|) / edge_softness, else the ray passes through unchanged. The
+    branch is drawn (uniform 10 of the bounce) on the detached alpha
+    clamped to [0.2, 0.8] (a_s) and weighted by alpha / a_s or
+    (1 - alpha) / (1 - a_s), so the value matches the oracle sample for
+    sample and d alpha carries the silhouette's motion. 0 keeps exact
+    hard edges.
     return_alive: also return per-depth (alive bounce rays, live shadow
     rays) counts, each a (max_depth,) int64 tensor.
     """
@@ -435,8 +547,22 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
                                 beta * env_eval(scene, d) * w[:, None], 0.0)
         alive = alive & hs.hit
         n_shadow.append(alive.sum() * n_sh)
-        sp = _surface_at(scene, hs)
         is_hair, fx, fy, fz = _shading_frame(hs, d)
+        # soft silhouettes: pass_th lanes go on through the strand
+        pass_th = torch.zeros_like(alive)
+        if edge_softness:
+            cov = alive & is_hair
+            alpha = torch.where(cov, torch.clamp(
+                (1.0 - torch.abs(hs.h)) / edge_softness, 0.0, 1.0), 1.0)
+            a_det = alpha.detach()
+            # clamped away from 0 and 1, the branch probability bounds the
+            # weights and their derivatives (unbiased for any a_s)
+            a_s = torch.where(a_det >= 1.0, 1.0, torch.clamp(a_det, 0.2, 0.8))
+            pass_th = cov & (ub[:, 10] >= a_s)
+            beta = beta * torch.where(
+                pass_th, (1.0 - alpha) / torch.clamp(1.0 - a_s, min=1e-6),
+                alpha / torch.clamp(a_s, min=1e-6))[:, None]
+        sp = _surface_at(scene, hs)
         # emission of surface hits (area lights BSDF rays find), weighted
         # against the area-light NEE that could have reached the point
         w_em = torch.ones_like(prev_pdf)
@@ -452,7 +578,9 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
         pos = hs.position
         ray_eps = torch.where(is_hair, 2.0 * hs.radius, 1e-4)
         # wi-independent hair BSDF work, shared by every wi below
-        hctx = th.hair_ctx(scene.hair, hs.h, wo)
+        hctx = th.hair_ctx(_hair_mat_at(scene, hs.hair_mid), hs.h, wo)
+        # next-event estimation skips the lanes that pass through
+        lit = alive & ~pass_th
 
         def bsdf(wi_w):
             """(f |cos|, detached pdf of BSDF sampling) towards wi_w."""
@@ -479,7 +607,7 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
             f = torch.where(is_hair[:, None], f_hair, f_surf)
             contrib = beta * f * scene.light_intensity[li] / torch.clamp(
                 dist[:, None] ** 2, min=1e-12)
-            L = L + torch.where((alive & vis)[:, None], contrib, 0.0)
+            L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
 
         # environment-map NEE, weighted against BSDF sampling
         if use_env and use_nee:
@@ -492,7 +620,7 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
             f, pdf_b = bsdf(wi_w)
             contrib = beta * f * le * (
                 _mis(pdf_e, pdf_b) / torch.clamp(pdf_e, min=1e-12))[:, None]
-            L = L + torch.where((alive & vis)[:, None], contrib, 0.0)
+            L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
 
         # area-light NEE (emissive spheres, mesh triangles)
         if use_area:
@@ -516,7 +644,7 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
                 le = le * sample_bilinear(scene.tex_data, scene.tex_meta,
                                           scene.al_tex[el], luv[:, 0],
                                           luv[:, 1])
-            ok = alive & vis & (pdf_a > 1e-12) & (dist > 4.0 * ray_eps)
+            ok = lit & vis & (pdf_a > 1e-12) & (dist > 4.0 * ray_eps)
             contrib = beta * f * le * (
                 _mis(pdf_a, pdf_b) / torch.clamp(pdf_a, min=1e-12))[:, None]
             L = L + torch.where(ok[:, None], contrib, 0.0)
@@ -531,11 +659,14 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
         w_hair = torch.where((pdf_h > 1e-12)[:, None], w_hair, 0.0)
         wi_s, w_surf, pdf_s, delta_s = ts.surface_sample(sp, wo, ub[:, :3])
         wi = torch.where(is_hair[:, None], wi_h, wi_s)
-        beta = beta * torch.where(is_hair[:, None], w_hair, w_surf)
-        prev_pdf = torch.where(is_hair, pdf_h, pdf_s)
-        prev_delta = ~is_hair & delta_s
-
-        d = safe_normalize(_to_world(wi, fx, fy, fz))
+        # pass-through lanes keep their ray and MIS state; weight 1
+        beta = beta * torch.where(pass_th[:, None], 1.0, torch.where(
+            is_hair[:, None], w_hair, w_surf))
+        prev_pdf = torch.where(pass_th, prev_pdf,
+                               torch.where(is_hair, pdf_h, pdf_s))
+        prev_delta = torch.where(pass_th, prev_delta, ~is_hair & delta_s)
+        d = torch.where(pass_th[:, None], d,
+                        safe_normalize(_to_world(wi, fx, fy, fz)))
         o = pos + d * ray_eps[:, None]
         alive = alive & (torch.abs(beta).amax(-1) > 0)
         if depth >= RR_START:   # Russian roulette
@@ -551,7 +682,7 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
 
 
 def render(scene: Scene, cam: Camera, uniforms, max_depth=4, chunk=2048,
-           sampler="path", device=None):
+           sampler="path", edge_softness=0.0, device=None):
     """Render from a full uniforms tensor (H, W, spp, D) -> (H, W, 3)."""
     dev = resolve_device(device)
     uniforms, cam = uniforms.to(dev), cam.to(dev)
@@ -564,5 +695,5 @@ def render(scene: Scene, cam: Camera, uniforms, max_depth=4, chunk=2048,
     o, d = camera_rays(cam, wid, hgt, i.to(u.dtype), j.to(u.dtype),
                        u[:, :4])
     L = trace(scene, o, d, u, max_depth=max_depth, chunk=chunk,
-              sampler=sampler, device=dev)
+              sampler=sampler, edge_softness=edge_softness, device=dev)
     return L.reshape(hgt, wid, spp, 3).mean(2)

@@ -94,7 +94,7 @@ def ray_uniforms(seed_word: int, pixel_ids, sample_ids, max_depth,
 
 def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
                  seed_word, max_depth, chunk=2048, sampler="path",
-                 return_alive=False, device=None):
+                 edge_softness=0.0, return_alive=False, device=None):
     """Trace one flat batch of (pixel, sample) rays -> (B, 3) radiance
     (the reference's ``_trace_pixels``)."""
     from ..core.camera import camera_rays
@@ -107,8 +107,8 @@ def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
     j = (pixel_ids // width).to(u.dtype)
     o, d = camera_rays(cam.to(dev), width, height, i, j, u[:, :4])
     return path.trace(scene, o, d, u, max_depth=max_depth, chunk=chunk,
-                      sampler=sampler, return_alive=return_alive,
-                      device=dev)
+                      sampler=sampler, edge_softness=edge_softness,
+                      return_alive=return_alive, device=dev)
 
 
 def pixel_strips(n_pixels, spp):
@@ -123,7 +123,7 @@ def pixel_strips(n_pixels, spp):
 
 
 def pixel_means(scene, cam, width, height, pixels, spp, seed_word,
-                max_depth, chunk=2048, device=None):
+                max_depth, chunk=2048, edge_softness=0.0, device=None):
     """(P, 3) mean of each pixel's spp samples, its rays traced
     contiguously in one batch."""
     dev = resolve_device(device)
@@ -131,7 +131,8 @@ def pixel_means(scene, cam, width, height, pixels, spp, seed_word,
     pid = pixels.repeat_interleave(spp)
     sid = torch.arange(spp, device=dev).repeat(pixels.shape[0])
     L = trace_pixels(scene, cam, width, height, pid, sid, seed_word,
-                     max_depth, chunk=chunk, device=dev)
+                     max_depth, chunk=chunk, edge_softness=edge_softness,
+                     device=dev)
     return L.reshape(-1, spp, 3).mean(1)
 
 
@@ -142,21 +143,23 @@ def draw_tiles(n_tiles, k, generator):
 
 
 def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
-                  pixel_batch=None, device=None):
+                  pixel_batch=None, edge_softness=0.0, device=None):
     """Build an inverse-rendering step:
     step(params, opt, scene, cam, target, seed_word, generator=None)
         -> (loss, grads)
 
     params: {name: leaf tensor with requires_grad} of ``HairMaterial``
-    fields, which replace the scene's; opt: a ``torch.optim`` optimizer
+    fields, which replace the scene's (scalar or (3,) leaves, or rows of
+    a per-shape table: (Mh,) / (Mh, 3)); opt: a ``torch.optim`` optimizer
     over those leaves (``torch.optim.Adam(lr)`` is optax's ``adam(lr)``);
     target: (H, W, 3). The loss is the mean squared error of the pixel
     means against the target. Each strip calls ``backward`` on its share
     of the loss, so the gradients accumulate to the whole batch's (up to
     f32 summation order). Then, in the reference's order: non-finite
     gradient entries become 0, ``opt.step()``, and each param is clamped
-    in place to ``PARAM_BOUNDS``. Returns the loss and the (sanitized)
-    gradients.
+    in place to ``PARAM_BOUNDS``, entry by entry. Returns the loss and
+    the (sanitized) gradients. edge_softness: soft strand silhouettes
+    (``integrator.path.trace``).
 
     pixel_batch: each step traces that many pixels, whole 16x8 tiles
     drawn without replacement from ``generator`` by ``draw_tiles``, and
@@ -193,7 +196,8 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
         loss = torch.zeros((), device=dev)
         for sl in pixel_strips(pixels.numel(), spp):
             img = pixel_means(sc, cam, width, height, pixels[sl], spp,
-                              seed_word, max_depth, chunk, dev)
+                              seed_word, max_depth, chunk, edge_softness,
+                              dev)
             part = ((img - tgt[pixels[sl]]) ** 2).sum() / n
             part.backward()
             loss = loss + part.detach()
