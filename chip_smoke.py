@@ -86,6 +86,29 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             ``goldens/config5_stats.json``; the p99 and the 256x256
             box-downsample's mean |diff| from ``goldens/config5.pfm``
             are printed.
+15. scenefile3  (run after ``golden``) config 3 written as a scene file
+            by ``apps.convert genscene`` and rendered by ``apps.render
+            --scene`` at the bench frame: the HDR bit-equal to ``main``'s
+            image, the PNG (read back by the port's decoder) equal to its
+            8-bit tonemap, a 2-spp render resumed from a 1-spp
+            ``--checkpoint`` bit-equal to the uninterrupted one, and
+            ``invert --scene`` with ``train``'s argv: the first loss
+            bit-equal to ``train``'s, the later ones within 1e-5.
+16. scenefile5  config 5 written as a scene file and rendered by
+            ``render --scene`` at 1024x1024, 1 spp, depth 6: every scene
+            tensor equal to ``--config 5``'s but the env map's pmf and
+            cdf (within 1e-7: the map goes through a float32 PFM); the
+            image's mean within 0.1% of ``main5``'s and >= 99.9% of its
+            values within 5e-3. Load and frame seconds, file bytes,
+            Mrays/s, launches.
+17. scene4, kernels4  ladder config 4 (the scalp model: 300,000
+            segments in 4,096 clusters) and ``kernels`` on the centre
+            strip of its 512x512 frame at depth 6.
+18. ladder  config 4 at its spec (512x512, depth 6) through
+            ``progressive_render`` on the first 8 of the golden's 32
+            sample streams (the only cut), launch counts set to 0 just
+            before and read just after: the mean within 1% of
+            ``goldens/config4_stats.json``.
 
 With --profile, a last phase traces one bench strip with torch.profiler
 and prints the device time of each layer: the cluster lists (torch ops),
@@ -96,7 +119,8 @@ device's idle share; then config 5's centre strip forward (``profile5``).
 
 A ``total`` line gives the script's seconds.
 The line before the last is the ``kernels`` record (each kernel on the
-config-3, the config-5 and the instanced path), the last one
+config-3, the config-5, the instanced and the config-4 path), the last
+one
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -133,6 +157,9 @@ FD_EPS, FD_RTOL = 1e-3, 0.02
 # resolution and depth
 W5 = H5 = 1024
 DEPTH5 = 6
+# config 4 (the scalp model) at its golden's resolution and depth
+W4 = H4 = 512
+DEPTH4 = 6
 GOLDEN5_SPP = 4
 INVERT5_BATCH = 2048
 GRAD5_WINDOW, GRAD5_DEPTH, GRAD5_RTOL = 32, 2, 1e-2
@@ -146,6 +173,16 @@ INST_TOL, INST_CLOSE = 5e-3, 0.97
 # soft silhouettes on config 3
 SOFT = 0.2
 SOFT_WINDOW, SOFT_DEPTH, SOFT_RTOL = 32, 2, 1e-2
+# config 4 (the scalp model) at its spec on the first LADDER_SPP of the
+# golden's 32 sample streams
+LADDER_SPP = 8
+# invert --scene against invert --config 3: later steps may move by the
+# ulps of the backward's atomic scatter-adds
+INVERT_LOSS_RTOL = 1e-5
+# config 5 from a scene file against --config 5: the env map goes through
+# a float32 PFM, so its pmf and cdf (built in float64) move by ulps
+ENV_TABLE_ATOL = 1e-7
+SCENE5_MEAN_RTOL, SCENE5_TOL, SCENE5_CLOSE = 1e-3, 5e-3, 0.999
 
 
 def emit(**fields):
@@ -630,17 +667,20 @@ def invert_steps(dev, argv=("--config", "3", "--resolution", str(WIDTH),
                 f"invert did not move {k} from {start}")
     return dict(invert_argv=list(argv), invert_seconds=seconds,
                 invert_final_loss=res["final_loss"],
+                invert_losses=res["losses"],
                 invert_recovered=res["recovered"], invert_true=res["true"],
                 invert_log=log.getvalue().splitlines())
 
 
 def phase_train(sc, cam, dev):
+    """-> the ``invert`` steps' losses."""
     fields = bench_fwdbwd(sc, cam, dev)
     fields["gradient_check"] = gradient_check(sc, cam, dev)
     fields.update(invert_steps(dev))
     emit(phase="train", ok=True, width=WIDTH, height=HEIGHT, spp=SPP,
          depth=DEPTH, strips=-(-WIDTH * HEIGHT * SPP // STRIP),
          fd_eps=FD_EPS, fd_rtol=FD_RTOL, **fields)
+    return fields["invert_losses"]
 
 
 def phase_golden(sc, cam, dev):
@@ -673,6 +713,231 @@ def phase_golden(sc, cam, dev):
                   pixel_mean_abs_diff=float(np.abs(img - ref).mean()))
     require(ok, "golden", json.dumps(fields))
     emit(**fields)
+
+
+def zero_launches():
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+
+
+def read_launches(phase):
+    """The launch counts since ``zero_launches``; both kernels must have
+    run."""
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+    launches = dict(ik.LAUNCHES)
+    require(all(n > 0 for n in launches.values()), phase,
+            f"a kernel was not launched on this path: {launches}")
+    return launches
+
+
+def quiet(main, argv):
+    """(result, printed lines) of one CLI call."""
+    import contextlib
+    import io
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        res = main(argv)
+    return res, log.getvalue().splitlines()
+
+
+def genscene(generator, directory):
+    """``apps.convert genscene`` into directory -> (scene.json path, the
+    files' bytes)."""
+    from yhair_tpu_torch.apps import convert
+
+    os.makedirs(directory)
+    path = os.path.join(directory, "scene.json")
+    quiet(convert.main, ["genscene", generator, path])
+    return path, sum(os.path.getsize(os.path.join(directory, f))
+                     for f in os.listdir(directory))
+
+
+def render_cli(phase, scene, res, spp, depth, out, dev, *extra):
+    """``apps.render --scene`` to out.png and out.pfm, launch counts set
+    to 0 just before and read just after -> (result, launches)."""
+    from yhair_tpu_torch.apps import render as app
+
+    zero_launches()
+    res_, _ = quiet(app.main, [
+        "--scene", scene, "--resolution", str(res), "--spp", str(spp),
+        "--bounces", str(depth), "--output", out + ".png", "--hdr",
+        out + ".pfm", "--device", str(dev), *extra])
+    return res_, read_launches(phase)
+
+
+def phase_scenefile3(img3, train_losses, dev):
+    """Config 3 written as a scene file (``convert genscene``), rendered
+    by ``render --scene`` at the bench frame: its HDR equals the ``main``
+    phase's image bit for bit, and its PNG, read back by the port's own
+    decoder, the 8-bit tonemap of that image. A 2-spp render interrupted
+    after sample 1 (``--checkpoint``) equals the uninterrupted one bit
+    for bit. ``invert --scene`` with the ``train`` phase's argv: its
+    first loss bit-equal to that phase's, the later ones within
+    INVERT_LOSS_RTOL."""
+    import tempfile
+
+    import numpy as np
+
+    from yhair_tpu_torch.io import image as img_io
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scene, file_bytes = genscene("curly_hairball",
+                                     os.path.join(tmp, "config3"))
+        write_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "frame")
+        res, launches = render_cli("scenefile3", scene, WIDTH, SPP, DEPTH,
+                                   out, dev)
+        hdr = img_io.load_pfm(out + ".pfm")
+        require(np.array_equal(hdr, img3.astype(np.float32)), "scenefile3",
+                "render --scene differs from the main phase's frame on "
+                f"{int((hdr != img3.astype(np.float32)).sum())} values")
+        with open(out + ".png", "rb") as f:
+            png = img_io.decode_png(f.read())
+        require(np.array_equal(png, img_io.to_ldr(img3)), "scenefile3",
+                "the PNG does not hold the tonemapped frame")
+
+        ck = os.path.join(tmp, "render.ckpt.npz")
+        render_cli("scenefile3", scene, WIDTH, 1, DEPTH,
+                   os.path.join(tmp, "s1"), dev, "--checkpoint", ck)
+        resumed, _ = render_cli("scenefile3", scene, WIDTH, 2, DEPTH,
+                                os.path.join(tmp, "resumed"), dev,
+                                "--checkpoint", ck)
+        whole, _ = render_cli("scenefile3", scene, WIDTH, 2, DEPTH,
+                              os.path.join(tmp, "whole"), dev)
+        require(np.array_equal(resumed["image"], whole["image"]),
+                "scenefile3", "the resumed 2-spp render differs from the "
+                "uninterrupted one")
+
+        inv = invert_steps(dev, (
+            "--scene", scene, "--resolution", str(WIDTH), "--spp", str(SPP),
+            "--bounces", str(DEPTH), "--steps", "3", "--pixel-batch",
+            str(STRIP)), phase="scenefile3")
+    losses = inv["invert_losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_losses)]
+    fields = dict(phase="scenefile3", ok=True, file_bytes=file_bytes,
+                  write_s=write_s, load_s=res["load_s"],
+                  frame_s=res["render_s"], launches=launches,
+                  hdr_vs_main="bit-equal", png_vs_tonemap="equal",
+                  resume_vs_whole="bit-equal",
+                  invert_losses=losses, train_losses=train_losses,
+                  invert_loss_rel=rel, invert_loss_rtol=INVERT_LOSS_RTOL,
+                  invert_seconds=inv["invert_seconds"])
+    require(losses[0] == train_losses[0], "scenefile3",
+            f"invert --scene's first loss differs: {json.dumps(fields)}")
+    require(max(rel) <= INVERT_LOSS_RTOL, "scenefile3",
+            f"invert --scene's losses differ: {json.dumps(fields)}")
+    emit(**fields)
+
+
+def scene_tensors(tree, prefix=""):
+    """{dotted name: tensor} of a Scene's tensors (NamedTuples flattened)."""
+    import torch
+    out = {}
+    for name, v in tree._asdict().items():
+        if hasattr(v, "_asdict"):
+            out.update(scene_tensors(v, f"{prefix}{name}."))
+        elif isinstance(v, torch.Tensor):
+            out[prefix + name] = v
+    return out
+
+
+def phase_scenefile5(sc5, img5, dev):
+    """Config 5 written as a scene file and rendered by ``render --scene``
+    at 1024x1024, 1 spp, depth 6: every scene tensor equals ``--config
+    5``'s, but the env map's pmf and cdf, within ENV_TABLE_ATOL; the
+    image against ``main5``'s: mean within SCENE5_MEAN_RTOL, at least
+    SCENE5_CLOSE of the values within SCENE5_TOL."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scene, file_bytes = genscene("furry_bunny",
+                                     os.path.join(tmp, "config5"))
+        write_s = time.perf_counter() - t0
+        res, launches = render_cli("scenefile5", scene, W5, SPP, DEPTH5,
+                                   os.path.join(tmp, "frame"), dev)
+    want, got = scene_tensors(sc5), scene_tensors(res["scene"])
+    require(sorted(want) == sorted(got), "scenefile5",
+            f"scene fields differ: {sorted(set(want) ^ set(got))}")
+    env_err = {}
+    for k, a in want.items():
+        b = got[k]
+        require(a.shape == b.shape and a.dtype == b.dtype, "scenefile5",
+                f"{k}: {tuple(b.shape)} {b.dtype} against {tuple(a.shape)} "
+                f"{a.dtype}")
+        if k in ("env_pmf", "env_cdf"):
+            env_err[k] = float((a.double() - b.double()).abs().max())
+            require(env_err[k] <= ENV_TABLE_ATOL, "scenefile5",
+                    f"{k} differs by {env_err[k]}")
+        else:
+            require(bool(torch.equal(a, b)), "scenefile5",
+                    f"{k} differs from --config 5's")
+    img = res["image"]
+    mean_rel = abs(float(img.mean()) - float(img5.mean())) / float(
+        img5.mean())
+    close = float(np.isclose(img, img5, rtol=SCENE5_TOL,
+                             atol=SCENE5_TOL).mean())
+    rays = W5 * H5 * SPP * DEPTH5 * (1 + shadow_rays_per_bounce(sc5))
+    fields = dict(phase="scenefile5", ok=True, file_bytes=file_bytes,
+                  write_s=write_s, load_s=res["load_s"],
+                  frame_s=res["render_s"],
+                  mrays_s=rays / res["render_s"] / 1e6, launches=launches,
+                  tensors_equal=len(want) - len(env_err),
+                  env_table_max_abs=env_err, env_table_atol=ENV_TABLE_ATOL,
+                  mean=float(img.mean()), main5_mean=float(img5.mean()),
+                  mean_rel=mean_rel, mean_rtol=SCENE5_MEAN_RTOL,
+                  close_frac=close, close_tol=SCENE5_TOL,
+                  close_gate=SCENE5_CLOSE,
+                  max_abs_diff=float(np.abs(img - img5).max()))
+    require(mean_rel <= SCENE5_MEAN_RTOL and close >= SCENE5_CLOSE,
+            "scenefile5", json.dumps(fields))
+    emit(**fields)
+
+
+def phase_ladder(sc4, cam4, dev):
+    """Ladder config 4 (the scalp model: 300,000 segments) at its spec,
+    512x512 and depth 6, through ``progressive_render`` on the first
+    LADDER_SPP of the golden's 32 sample streams, launch counts set to 0
+    just before and read just after: the mean within GOLDEN_MEAN_RTOL of
+    ``goldens/config4_stats.json``. -> the launches."""
+    import numpy as np
+
+    from scenes.generators import CONFIGS
+    from yhair_tpu_torch.apps import render as app
+
+    cfg = CONFIGS[4]
+    with open(os.path.join(GOLDEN, "config4_stats.json")) as f:
+        gold = json.load(f)
+    zero_launches()
+    t0 = time.perf_counter()
+    img = app.progressive_render(sc4, cam4, cfg["res"], cfg["res"],
+                                 LADDER_SPP, cfg["depth"], seed=0, log=None,
+                                 device=dev)
+    seconds = time.perf_counter() - t0
+    launches = read_launches("ladder")
+    mean = float(img.mean())
+    mean_rel = abs(mean - gold["mean"]) / gold["mean"]
+    fields = dict(phase="ladder", ok=True, config=4, res=cfg["res"],
+                  spp=LADDER_SPP, golden_spp=cfg["spp"],
+                  cut=f"the first {LADDER_SPP} of the golden's "
+                      f"{cfg['spp']} sample streams",
+                  depth=cfg["depth"], segments=int(
+                      (sc4.accel.seg_index >= 0).sum()),
+                  clusters=sc4.accel.n_clusters, seconds=seconds,
+                  launches=launches, mean=mean, golden_mean=gold["mean"],
+                  mean_rel=mean_rel, mean_rtol=GOLDEN_MEAN_RTOL,
+                  p99_lum=float(np.percentile(img.mean(-1), 99)),
+                  golden_p99_lum=gold["p99_lum"])
+    require(bool(np.isfinite(img).all()) and mean_rel <= GOLDEN_MEAN_RTOL,
+            "ladder", json.dumps(fields))
+    emit(**fields)
+    return launches
 
 
 def centre_pixels(width, height, window):
@@ -1126,6 +1391,26 @@ def phase_scene5(dev):
     return sc, cam
 
 
+def phase_scene4(dev):
+    """Config 4 at its full size: the scene, its clusters and camera."""
+    import torch
+
+    from yhair_tpu_torch.apps import render as app
+
+    t0 = time.time()
+    sc, cam, _, _, _ = app.load_config(4, device=dev)
+    torch.cuda.synchronize()
+    cl = sc.accel
+    real = (cl.seg_index >= 0).reshape(cl.n_clusters, -1)
+    emit(phase="scene4", ok=True, segments=int(real.sum()),
+         clusters=cl.n_clusters, nonempty_clusters=int(real.any(1).sum()),
+         tile_bytes=nbytes(cl.tc), spheres=sc.n_spheres,
+         point_lights=sc.n_lights,
+         shadow_rays_per_bounce=shadow_rays_per_bounce(sc),
+         seconds=time.time() - t0)
+    return sc, cam
+
+
 def phase_train5(sc, cam, dev):
     """Config 5's training path: the fwd+bwd frame (main5 warmed the
     forward, so no warm-up frame), the card-against-CPU gradients and
@@ -1335,11 +1620,12 @@ def main(argv=None):
     hit_stats, any_stats = phase_kernels(sc, cam, dev)
     if args.stop_after == "kernels":
         return 0
-    launches, _, _ = phase_main(sc, cam, dev)
+    launches, img3, _ = phase_main(sc, cam, dev)
     if args.stop_after == "main":
         return 0
-    phase_train(sc, cam, dev)
+    train_losses = phase_train(sc, cam, dev)
     phase_golden(sc, cam, dev)
+    phase_scenefile3(img3, train_losses, dev)
     hit_i, any_i, launches_i = phase_inst3(sc, cam, dev)
     phase_soft3(sc, cam, dev)
     phase_curves(dev)
@@ -1349,14 +1635,21 @@ def main(argv=None):
     strip5 = W5 * H5 // STRIP // 2      # the strip through the centre
     hit5, any5 = phase_kernels(sc5, cam5, dev, W5, H5, DEPTH5, strip5,
                                phase="kernels5")
-    launches5, _, _ = phase_main(sc5, cam5, dev, W5, H5, DEPTH5,
-                                 phase="main5")
+    launches5, img5, _ = phase_main(sc5, cam5, dev, W5, H5, DEPTH5,
+                                    phase="main5")
     phase_train5(sc5, cam5, dev)
     phase_golden5(sc5, cam5, dev)
+    phase_scenefile5(sc5, img5, dev)
     if args.profile:
         phase_profile(sc, cam, dev)
         phase_profile(sc5, cam5, dev, W5, H5, DEPTH5, strip5,
                       phase="profile5", fwdbwd=False)
+    del sc5, cam5, img5
+
+    sc4, cam4 = phase_scene4(dev)
+    hit4, any4 = phase_kernels(sc4, cam4, dev, W4, H4, DEPTH4,
+                               W4 * H4 // STRIP // 2, phase="kernels4")
+    launches4 = phase_ladder(sc4, cam4, dev)
     emit(phase="total", ok=True, seconds=time.time() - t_start)
 
     records = []
@@ -1365,7 +1658,9 @@ def main(argv=None):
              (hit_stats, any_stats)),
             (" (config 5)", "config 5, furry bunny", launches5, (hit5, any5)),
             (" (instanced)", "config 3 posed as two instances", launches_i,
-             (hit_i, any_i))):
+             (hit_i, any_i)),
+            (" (config 4)", "config 4, scalp model (ladder)", launches4,
+             (hit4, any4))):
         records += [
             kernel_record("hit_kernel" + suffix,
                           "yhair_tpu/ops/intersect_kernel.py:186", stats[0],

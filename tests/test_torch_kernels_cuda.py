@@ -361,3 +361,61 @@ def test_soft_edge_gradients_match_the_cpu(cuda):
     assert all(ik.LAUNCHES[k] > before[k] for k in before)
     for v in out.values():
         assert v["rel_err"] <= chip_smoke.SOFT_RTOL, v
+
+
+def test_scene_file_renders_as_its_config_through_both_kernels(cuda,
+                                                                tmp_path):
+    """Config 2 (the hair patch, 8,000 segments) written by ``convert
+    genscene`` and rendered by ``render --scene`` on the card equals
+    ``render --config 2`` bit for bit, and the render launches both
+    kernels."""
+    from yhair_tpu_torch.apps import convert
+    from yhair_tpu_torch.apps import render as app
+
+    scene = tmp_path / "config2" / "scene.json"
+    scene.parent.mkdir()
+    convert.main(["genscene", "hair_patch", str(scene)])
+    argv = ["--resolution", "64", "--spp", "2", "--bounces", "2",
+            "--device", "cuda"]
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    a = app.main(["--scene", str(scene), *argv,
+                  "--output", str(tmp_path / "a.pfm")])
+    launches = dict(ik.LAUNCHES)
+    b = app.main(["--config", "2", *argv,
+                  "--output", str(tmp_path / "b.pfm")])
+    assert all(n > 0 for n in launches.values()), launches
+    assert a["image"].mean() > 0
+    np.testing.assert_array_equal(a["image"], b["image"])
+
+
+def test_debug_nans_runs_clean_through_both_kernels(cuda, tmp_path):
+    """``render --debug-nans`` and ``invert --debug-nans`` of a small
+    hairball file on the card: no op of the forward or the backward makes
+    a NaN, and both kernels run."""
+    import json
+
+    from yhair_tpu_torch.apps import convert, invert
+    from yhair_tpu_torch.apps import render as app
+    from yhair_tpu_torch.utils import debug
+
+    scene = tmp_path / "hairball" / "scene.json"
+    scene.parent.mkdir()
+    convert.main(["genscene", "curly_hairball", str(scene), "--kwargs",
+                  json.dumps({"n_strands": 300, "n_seg": 8})])
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    try:
+        res = app.main(["--scene", str(scene), "--resolution", "64",
+                        "--spp", "1", "--bounces", "3", "--debug-nans",
+                        "--output", str(tmp_path / "x.pfm"),
+                        "--device", "cuda"])
+        rec = invert.main(["--scene", str(scene), "--resolution", "32",
+                           "--spp", "1", "--bounces", "3", "--steps", "2",
+                           "--debug-nans", "--out",
+                           str(tmp_path / "rec.json"), "--device", "cuda"])
+    finally:
+        debug.disable_debug_nans()
+    assert all(n > 0 for n in ik.LAUNCHES.values()), ik.LAUNCHES
+    assert np.isfinite(res["image"]).all() and res["image"].mean() > 0
+    assert np.isfinite(rec["losses"]).all()

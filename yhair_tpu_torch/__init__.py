@@ -6,22 +6,28 @@ kernels replaced by CUDA kernels written by hand for ``sm_90a``
 (``csrc/intersect.cu``). ``yhair_tpu`` stays the reference; the tests in
 ``tests/test_torch_*.py`` hold each module of this package against it.
 
-It renders and differentiates scenes of hair segments, spheres, planes,
-triangle meshes, point and area lights, a constant environment or an
-environment map, and textures (the ladder's configs 1-5) through the
-cluster search; Bezier curves and per-shape hair materials are not
-ported yet.
+It renders and differentiates scenes of hair segments (one material or
+a per-shape table of them, posed instances), Bezier curves, spheres,
+planes, triangle meshes, point and area lights, a constant environment
+or an environment map, and textures (the ladder's configs 1-5), through
+the cluster search or by brute force. Scenes come from the ladder's
+generators or from scene files (JSON beside PLY, .hair, OBJ and image
+files).
 
 Layer map:
+  io/          scene files, PLY, .hair, OBJ, images (PNG, PFM, EXR, HDR),
+               host numpy
   core/        RNG layout, camera, scene tensors, environment map, textures
   geometry/    ray-segment closest approach, brute-force nearest hit,
-               ray-triangle search
-  accel/       median-split leaf order (host numpy)
+               ray-triangle search, Bezier curves, mesh shape ops (numpy)
+  accel/       median-split leaf order (host numpy), posed instances
   ops/         clusters, cluster lists, the two CUDA kernels + plain twins
   bsdf/        hair and surface BSDFs
   integrator/  wavefront path tracer
-  parallel/    counter-hash uniforms and the tile pixel order
-  apps/        the render and invert CLIs, the progressive renderer
+  parallel/    counter-hash uniforms, the tile pixel order, training step
+  utils/       render and training checkpoints, NaN and finite checks
+  apps/        the render, invert, convert and view CLIs and the
+               progressive renderer they share (apps/common.py)
 
 Entry points put their tensors on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without ``device="cpu"`` they raise.

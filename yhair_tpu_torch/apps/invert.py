@@ -2,10 +2,12 @@
 recover hair parameters from a target image by gradient descent through
 the differentiable renderer.
 
-  python -m yhair_tpu_torch.apps.invert --config 3 --resolution 64 \\
-      --spp 4 --steps 60 --params beta_m,beta_n,sigma_a \\
-      [--target target.pfm] [--pixel-batch 4096] [--edge-softness 0.3] \\
-      [--device cuda]
+  python -m yhair_tpu_torch.apps.invert (--scene scene.json | --config 3) \\
+      [--resolution 64] [--spp 4] [--steps 60] \\
+      [--params beta_m,beta_n,sigma_a] [--target target.pfm] \\
+      [--pixel-batch 4096] [--edge-softness 0.3] \\
+      [--checkpoint invert.ckpt] [--tb-logdir runs/] [--profile-dir prof/] \\
+      [--debug-nans] [--device cuda]
 
 Without --target, the target image is rendered from the scene's true
 parameters on the reference's uniforms for --seed, and the optimisation
@@ -14,22 +16,31 @@ benchmark); the target renders with the same --edge-softness as the
 steps, so soft silhouettes bias no parameter. Each step draws its
 uniforms from its own seed word (``step_seed``) and, with
 --pixel-batch, its tiles from a ``torch.Generator`` seeded with --seed;
-neither is the reference's threefry stream. Writes the recovered and
-true values as JSON.
+neither is the reference's threefry stream. --checkpoint saves the
+params, the optimizer, the step and that generator every 20 steps and
+resumes from them, so a resumed run takes the steps an uninterrupted
+one would. Writes the recovered and true values, the last gradients
+and the loss of every step this run took as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from .. import convert
+from ..io import image as img_io
 from ..parallel import mesh
-from . import render as app
+from ..utils import checkpoint as ckpt
+from .common import build_device_scene, load_scene, progressive_render
+
+# a checkpoint is saved after every this many steps
+CHECKPOINT_EVERY = 20
 
 
 def step_seed(seed: int, it: int) -> int:
@@ -41,8 +52,10 @@ def step_seed(seed: int, it: int) -> int:
 def build_parser():
     p = argparse.ArgumentParser(prog="yhair-torch-invert",
                                 description=__doc__)
-    p.add_argument("--config", type=int, choices=range(1, 6), required=True,
-                   help="builtin ladder config (scenes.generators.CONFIGS)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--scene", help="scene JSON path")
+    src.add_argument("--config", type=int, choices=range(1, 6),
+                     help="builtin ladder config (scenes.generators.CONFIGS)")
     p.add_argument("--resolution", type=int, default=64)
     p.add_argument("--spp", type=int, default=4)
     p.add_argument("--bounces", type=int, default=3)
@@ -51,7 +64,8 @@ def build_parser():
     p.add_argument("--params", default="beta_m,beta_n,sigma_a",
                    help="comma list of hair params to optimize")
     p.add_argument("--target", default=None,
-                   help="target HDR image (.pfm/.npy); default: self-render")
+                   help="target HDR image (.pfm/.exr/.hdr/.npy); default: "
+                        "self-render")
     p.add_argument("--pixel-batch", type=int, default=None,
                    help="stochastic minibatch: pixels sampled per step "
                         "(whole 128-pixel tiles; default: full image)")
@@ -62,13 +76,25 @@ def build_parser():
                    help="multiplicative perturbation of the initial params")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="recovered_params.json")
+    p.add_argument("--checkpoint", default=None,
+                   help="training-state file: resumed from, saved to every "
+                        f"{CHECKPOINT_EVERY} steps")
+    p.add_argument("--tb-logdir", default=None,
+                   help="write TensorBoard scalars (loss, grad norms, "
+                        "param trajectories, it/s) to this directory")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the third to fifth "
+                        "steps into this directory")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise at the first NaN-producing op "
+                        "(utils/debug.py)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p
 
 
 def load_target(path, res):
-    img = app.load_pfm(path) if path.endswith(".pfm") else np.load(path)
+    img = img_io.load_hdr(path)
     if img.shape != (res, res, 3):
         raise SystemExit(f"target is {img.shape}, expected {(res, res, 3)}")
     return torch.as_tensor(np.asarray(img, np.float32))
@@ -77,14 +103,17 @@ def load_target(path, res):
 def main(argv=None):
     """Run the optimisation; returns the result written to --out."""
     args = build_parser().parse_args(argv)
-    sc, cam, _, _, _ = app.load_config(args.config, device=args.device)
+    if args.debug_nans:
+        from ..utils.debug import enable_debug_nans
+        enable_debug_nans()
+    sc, cam = build_device_scene(*load_scene(args), device=args.device)
     dev = sc.env.device
     res, spp, depth = args.resolution, args.spp, args.bounces
 
     if args.target:
         target = load_target(args.target, res).to(dev)
     else:
-        target = torch.as_tensor(np.float32(app.progressive_render(
+        target = torch.as_tensor(np.float32(progressive_render(
             sc, cam, res, res, spp, depth, seed=args.seed,
             edge_softness=args.edge_softness, log=None, device=dev)),
             device=dev)
@@ -99,22 +128,70 @@ def main(argv=None):
                               pixel_batch=args.pixel_batch,
                               edge_softness=args.edge_softness, device=dev)
     gen = torch.Generator().manual_seed(args.seed)
+    start = 0
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        start, seed = ckpt.load_train_state(args.checkpoint, params, opt,
+                                            gen)
+        if seed != args.seed:
+            raise ValueError(f"{args.checkpoint} was trained with seed "
+                             f"{seed}, not {args.seed}")
+        print(f"resumed at step {start}")
 
+    tb = None
+    if args.tb_logdir:
+        from torch.utils.tensorboard import SummaryWriter
+        tb = SummaryWriter(args.tb_logdir)
+    prof = None
+    loss = grads = None
+    losses = []
     t0 = time.time()
-    for it in range(args.steps):
+    for it in range(start, args.steps):
+        if args.profile_dir and it == start + 2:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+            prof.start()
         loss, grads = step(params, opt, sc, cam, target,
                            step_seed(args.seed, it), generator=gen)
+        losses.append(float(loss))
+        if prof is not None and it == start + 4:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            prof.stop()
+            os.makedirs(args.profile_dir, exist_ok=True)
+            trace = os.path.join(args.profile_dir, "invert_trace.json")
+            prof.export_chrome_trace(trace)
+            prof = None
+            print(f"wrote profiler trace to {trace}")
+        if tb is not None:
+            tb.add_scalar("loss", float(loss), it)
+            tb.add_scalar("it_per_s", (it - start + 1) / (time.time() - t0),
+                          it)
+            for k, g in grads.items():
+                tb.add_scalar(f"grad_norm/{k}", float(g.norm()), it)
+            for k, v in params.items():
+                for ci, vv in enumerate(v.detach().reshape(-1)[:3].tolist()):
+                    tb.add_scalar(f"param/{k}/{ci}", vv, it)
         if it % 10 == 0 or it == args.steps - 1:
             vals = {k: v.tolist() for k, v in params.items()}
             print(f"step {it:4d} loss {float(loss):.6f} "
-                  f"({(it + 1) / (time.time() - t0):.2f} it/s) "
+                  f"({(it - start + 1) / (time.time() - t0):.2f} it/s) "
                   f"{json.dumps(vals)}")
+        if args.checkpoint and it % CHECKPOINT_EVERY == CHECKPOINT_EVERY - 1:
+            ckpt.save_train_state(args.checkpoint, params, opt, it + 1,
+                                  args.seed, gen)
+    if prof is not None:
+        prof.stop()
+    if tb is not None:
+        tb.close()
 
     result = {
         "recovered": {k: v.tolist() for k, v in params.items()},
         "true": {k: true_vals[k].tolist() for k in names},
-        "final_loss": float(loss),
-        "final_grads": {k: g.tolist() for k, g in grads.items()},
+        "final_loss": None if loss is None else float(loss),
+        "losses": losses,
+        "final_grads": (None if grads is None
+                        else {k: g.tolist() for k, g in grads.items()}),
         "steps": args.steps,
     }
     with open(args.out, "w") as f:

@@ -8,7 +8,7 @@ the batching, ``train_step_fn`` without a mesh, and ``PARAM_BOUNDS``.
 A training step traces its rays in tile-order strips of at most
 ``MAX_RAYS_PER_STRIP`` rays, which bounds the memory a strip's autograd
 graph holds. The reference's ``render_fn`` is
-``apps.render.progressive_render`` here.
+``apps.common.progressive_render`` here.
 
 torch has no unsigned 32-bit shift or add on every device, so the hash is
 done in int64 and cut back to 32 bits after every operation; the result
@@ -22,6 +22,7 @@ import torch
 
 from ..core.rng import n_uniform_dims
 from ..device import resolve_device
+from ..utils import debug
 
 TILE_W, TILE_H = 16, 8
 _M32 = 0xFFFFFFFF
@@ -155,9 +156,11 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
     target: (H, W, 3). The loss is the mean squared error of the pixel
     means against the target. Each strip calls ``backward`` on its share
     of the loss, so the gradients accumulate to the whole batch's (up to
-    f32 summation order). Then, in the reference's order: non-finite
-    gradient entries become 0, ``opt.step()``, and each param is clamped
-    in place to ``PARAM_BOUNDS``, entry by entry. Returns the loss and
+    f32 summation order). Then, in the reference's order: the loss and
+    gradients go through ``utils.debug.assert_finite`` (which raises
+    only when YHAIR_CHECK_FINITE=1), non-finite gradient entries become
+    0, ``opt.step()``, and each param is clamped in place to
+    ``PARAM_BOUNDS``, entry by entry. Returns the loss and
     the (sanitized) gradients. edge_softness: soft strand silhouettes
     (``integrator.path.trace``).
 
@@ -201,6 +204,9 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
             part = ((img - tgt[pixels[sl]]) ** 2).sum() / n
             part.backward()
             loss = loss + part.detach()
+        debug.assert_finite(loss, "train_step loss")
+        debug.assert_finite([p.grad for p in params.values()
+                             if p.grad is not None], "train_step grads")
         grads = {}
         for k, p in params.items():
             g = torch.zeros_like(p) if p.grad is None else p.grad
