@@ -6,8 +6,11 @@ card.
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
-1. build    nvcc builds ``yhair_tpu_torch/csrc/intersect.cu``; the card's
-            name and power limit are printed as nvidia-smi gives them.
+1. build    nvcc builds ``yhair_tpu_torch/csrc/intersect.cu`` and g++
+            the native cluster builder (``native/cluster_builder.cpp``,
+            which every scene build then takes: the phase fails if it is
+            not available); the card's name and power limit are printed
+            as nvidia-smi gives them.
 2. kernels  one 65,536-ray strip of the bench workload (the 10k-strand
             hairball, 512x512, depth 4) is traced with every kernel
             launch recorded: the camera rays and every bounce's rays.
@@ -109,6 +112,34 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             sample streams (the only cut), launch counts set to 0 just
             before and read just after: the mean within 1% of
             ``goldens/config4_stats.json``.
+19. bvh     config 3's full geometry built with ``accel="bvh"`` on the
+            card (120,000 segments, leaf size 4: 32,768 leaves), whose
+            skip-pointer walk is torch ops with a host sync every 16
+            steps and no kernel of its own. (a) Strip 0's 65,536 camera
+            rays against the cluster kernel: hit masks equal, original
+            ids equal on >= 99.9%, t within 1e-6 relative. (b) The bench
+            frame (512x512, 1 spp) cut to depth 1 (from the second
+            bounce on, every shadow query of a dead lane walks all
+            65,535 nodes: see BVH_FRAME_DEPTH) through the BVH against
+            the cluster kernels' frame at that depth (q99.9 < 1e-4,
+            mean < 1e-5, the gates of ``tests/test_bvh.py:69-70``), cut
+            to strip 0 (and saying so) if the whole frame would take
+            more than 150 s. The walk's steps per query, ms per query
+            and the seconds are printed.
+20. ranks   the multi-rank path (``parallel.mesh.render_fn`` and
+            ``train_step_fn`` over a ``torch.distributed`` group), in
+            spawned processes on the one card: world size 1 over NCCL,
+            2 over gloo (NCCL refuses two ranks on one device; both
+            ranks on cuda:0). Each rank's bench frame bit-equal to
+            ``main``'s image; one train step at 512x512 on a
+            65,536-pixel batch: world size 2's loss within 1e-6 and
+            gradients within 1e-4 relative of world size 1's (world
+            size 1 run twice shows the run-to-run spread), the params
+            equal on both ranks. Launch counts are set to 0 just before
+            each rank's frame and step and read just after; each
+            all-reduce's ms (after a barrier, whose wait is printed
+            apart). A four-card NCCL run is not possible on a one-card
+            machine and is not made.
 
 With --profile, a last phase traces one bench strip with torch.profiler
 and prints the device time of each layer: the cluster lists (torch ops),
@@ -183,6 +214,29 @@ INVERT_LOSS_RTOL = 1e-5
 # a float32 PFM, so its pmf and cdf (built in float64) move by ulps
 ENV_TABLE_ATOL = 1e-7
 SCENE5_MEAN_RTOL, SCENE5_TOL, SCENE5_CLOSE = 1e-3, 5e-3, 0.999
+# config 3 through the BVH walk (torch ops): strip 0's camera rays against
+# the cluster kernel, then the bench frame at BVH_FRAME_DEPTH against the
+# cluster kernels' under tests/test_bvh.py:69-70's gates, cut to strip 0
+# if the whole frame would take longer than BVH_FRAME_BUDGET_S. Depth 1:
+# from the second bounce on, the lanes that died sit at 1e8 and cast
+# their shadow rays back along -(1, 1, 1) / sqrt(3); in float32 every box
+# then collapses to one point, so each such query walks all 65,535 nodes
+# (the reference's walk does the same): strip 0 at the bench depth of 4
+# takes about 10 minutes on an H100
+BVH_LEAF = 4
+BVH_T_RTOL, BVH_ID_FRAC = 1e-6, 0.999
+BVH_Q999, BVH_MEAN = 1e-4, 1e-5
+BVH_FRAME_DEPTH, BVH_FRAME_BUDGET_S = 1, 150.0
+# the multi-rank path on the one card: world size 1 over NCCL, 2 over
+# gloo (NCCL refuses two ranks on one device); one train step with a
+# STRIP-pixel batch from params RANKS_START x the scene's. The loss is a
+# sum of squares (only the order of its sums moves); the gradients are
+# sums whose terms cancel (beta_m's most), and the backward's atomic
+# scatter-adds reorder them from run to run
+RANKS = (("nccl", 1), ("gloo", 2))
+RANKS_START, RANKS_LR, RANKS_SEED = 1.25, 5e-2, 1
+RANKS_LOSS_RTOL, RANKS_GRAD_RTOL = 1e-6, 1e-4
+RANKS_TIMEOUT_S = 300
 
 
 def emit(**fields):
@@ -282,10 +336,16 @@ def ptxas_lines(log):
 
 
 def phase_build():
+    from yhair_tpu_torch.accel import native
     from yhair_tpu_torch.ops import _cuda
     t0 = time.time()
     lib, log = _cuda.build()
     _cuda.library()
+    # the scene builds take the native cluster builder (g++): a failed
+    # build raises here, and a missing g++ fails the phase
+    native_lib = native.build()
+    require(native.available(), "build",
+            "the native cluster builder is not available (no g++?)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -293,6 +353,7 @@ def phase_build():
     print(smi, flush=True)
     emit(phase="build", ok=True, seconds=time.time() - t0,
          library=os.path.relpath(lib, ROOT),
+         native_library=os.path.relpath(native_lib, ROOT),
          ptxas=ptxas_lines(log),
          nvidia_smi=smi)
     return smi
@@ -938,6 +999,331 @@ def phase_ladder(sc4, cam4, dev):
             "ladder", json.dumps(fields))
     emit(**fields)
     return launches
+
+
+class WalkRecorder:
+    """Wraps ``accel.traverse.nearest_hit`` for the span of a ``with``:
+    each query's rays, lockstep steps, ray steps and wall ms (the walk
+    syncs with the host every 16 steps, so a query ends in a sync)."""
+
+    def __init__(self, traverse):
+        self.traverse = traverse
+        self.queries = []
+
+    def __enter__(self):
+        import torch
+        tr = self.traverse
+        self.orig = tr.nearest_hit
+        nearest_hit = self.orig
+
+        def rec(o, d, bvh, *args, **kwargs):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = nearest_hit(o, d, bvh, *args, stats=stats, **kwargs)
+            torch.cuda.synchronize()
+            self.queries.append(dict(rays=o.shape[0],
+                                     ms=(time.perf_counter() - t0) * 1e3,
+                                     **stats))
+            return out
+
+        tr.nearest_hit = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.traverse.nearest_hit = self.orig
+
+    def summary(self):
+        q = self.queries
+        rays = sum(x["rays"] for x in q)
+        return dict(queries=len(q), walk_ms=sum(x["ms"] for x in q),
+                    ms_per_query=sum(x["ms"] for x in q) / max(len(q), 1),
+                    steps_per_query=sum(x["steps"] for x in q)
+                    / max(len(q), 1),
+                    max_steps=max((x["steps"] for x in q), default=0),
+                    ray_steps_per_ray=sum(x["ray_steps"] for x in q)
+                    / max(rays, 1))
+
+
+def phase_bvh(sc, cam, dev):
+    """Config 3 through the skip-pointer BVH on the card: (a) strip 0's
+    camera rays against the cluster kernel; (b) the bench frame at
+    BVH_FRAME_DEPTH against the cluster kernels' (strip 0 only if the
+    frame would outlast BVH_FRAME_BUDGET_S)."""
+    import numpy as np
+    import torch
+
+    from scenes.generators import CONFIGS
+    from yhair_tpu_torch.accel import traverse
+    from yhair_tpu_torch.apps import common
+    from yhair_tpu_torch.core.camera import camera_rays
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+    from yhair_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    scb, camb = common.build_device_scene(*CONFIGS[3]["fn"](), accel="bvh",
+                                          leaf_size=BVH_LEAF, device=dev)
+    build_s = time.perf_counter() - t0
+    bvh = scb.accel
+    require(isinstance(bvh, traverse.DeviceBVH)
+            and bvh.p0.device.type == dev.type, "bvh",
+            f"accel='bvh' did not build a DeviceBVH on {dev}")
+
+    # (a) strip 0's camera rays: the walk against the cluster kernel
+    pid = strip_pixels(WIDTH, HEIGHT, 0, dev)
+    u = mesh.ray_uniforms(mesh.key_seed(0), pid, torch.zeros_like(pid),
+                          DEPTH)
+    o, d = camera_rays(camb, WIDTH, HEIGHT, (pid % WIDTH).to(u.dtype),
+                       (pid // WIDTH).to(u.dtype), u[:, :4])
+    with WalkRecorder(traverse) as rec_a:
+        t_b, _, hit_b, orig_b = traverse.nearest_hit(o, d, bvh)
+    t_c, idx_c, hit_c = ik.make_nearest_fn(sc.accel, device=dev)(o, d)
+    orig_c = sc.accel.seg_index[idx_c.long()]
+    require(torch.equal(hit_b, hit_c), "bvh",
+            f"the walk's hits differ from the cluster kernel's on "
+            f"{int((hit_b != hit_c).sum())} rays")
+    id_frac = float((orig_b[hit_b] == orig_c[hit_b]).float().mean())
+    t_rel = float(((t_b - t_c).abs() / t_c.abs())[hit_b].max())
+    walk_a = rec_a.summary()
+    fields_a = dict(rays=int(o.shape[0]), hits=int(hit_b.sum()),
+                    id_frac=id_frac, t_max_rel=t_rel,
+                    t_identical=bool(torch.equal(t_b[hit_b], t_c[hit_b])),
+                    **walk_a)
+    require(id_frac >= BVH_ID_FRAC and t_rel <= BVH_T_RTOL, "bvh",
+            json.dumps(fields_a))
+
+    # (b) the frame, strip by strip, against the cluster kernels'
+    n_strips = -(-WIDTH * HEIGHT // STRIP)
+    ref = torch.as_tensor(common.progressive_render(
+        sc, cam, WIDTH, HEIGHT, SPP, BVH_FRAME_DEPTH, seed=0, log=None,
+        device=dev).reshape(-1, 3), device=dev)
+    diffs, cut = [], None
+    t0 = time.perf_counter()
+    with WalkRecorder(traverse) as rec_b:
+        for b in range(n_strips):
+            pid = strip_pixels(WIDTH, HEIGHT, b, dev)
+            L = mesh.trace_pixels(scb, camb, WIDTH, HEIGHT, pid,
+                                  torch.zeros_like(pid), mesh.key_seed(0),
+                                  BVH_FRAME_DEPTH, device=dev)
+            diffs.append((L.double() - ref[pid]).abs().reshape(-1))
+            elapsed = time.perf_counter() - t0
+            if b == 0 and elapsed * n_strips > BVH_FRAME_BUDGET_S:
+                cut = (f"strip 0 only: it took {elapsed:.1f} s, so the "
+                       f"frame would take about {elapsed * n_strips:.0f} s "
+                       f"(budget {BVH_FRAME_BUDGET_S:.0f} s)")
+                break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    diff = torch.cat(diffs).cpu().numpy()
+    fields_b = dict(depth=BVH_FRAME_DEPTH, bench_depth=DEPTH,
+                    strips=len(diffs), cut=cut, seconds=seconds,
+                    q999=float(np.quantile(diff, 0.999)),
+                    mean_abs_diff=float(diff.mean()),
+                    identical=bool(diff.max() == 0), **rec_b.summary())
+    fields = dict(phase="bvh", ok=True, config=3,
+                  segments=int((bvh.seg_index >= 0).sum()),
+                  leaf_size=bvh.leaf_size, leaves=bvh.n_leaves,
+                  nodes=int(bvh.node_min.shape[0]) - 1, build_s=build_s,
+                  check_every=traverse.CHECK_EVERY_CUDA,
+                  camera_rays=fields_a, frame=fields_b,
+                  gates=dict(t_rel=BVH_T_RTOL, id_frac=BVH_ID_FRAC,
+                             q999=BVH_Q999, mean=BVH_MEAN))
+    require(fields_b["q999"] < BVH_Q999 and fields_b["mean_abs_diff"]
+            < BVH_MEAN, "bvh", json.dumps(fields))
+    emit(**fields)
+
+
+def _rank_worker(rank, world, backend, rdzv, out_dir):
+    """One rank of the ``ranks`` phase (a spawned process on cuda:0):
+    config 3's bench frame through ``render_fn`` and one
+    ``train_step_fn`` step, each with the launch counts set to 0 just
+    before and read just after; every all-reduce timed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from yhair_tpu_torch.apps import render as app
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+    from yhair_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{rdzv}", world_size=world, rank=rank,
+        device_id=torch.device("cuda", 0) if backend == "nccl" else None)
+    try:
+        group, dev = mesh.make_group()
+        reduce_ms, wait_ms = [], []
+        all_reduce = dist.all_reduce
+
+        def timed_all_reduce(*args, **kwargs):
+            # a barrier first, so the all-reduce's ms leave out the wait
+            # for the slower rank (kept apart as wait_ms)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.barrier(group=kwargs.get("group"))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = all_reduce(*args, **kwargs)
+            torch.cuda.synchronize()
+            wait_ms.append((t1 - t0) * 1e3)
+            reduce_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        dist.all_reduce = timed_all_reduce
+        sc, cam, _, _, _ = app.load_config(3, device=dev)
+        render = mesh.render_fn(WIDTH, HEIGHT, SPP, DEPTH, group=group,
+                                device=dev)
+        # a warm-up frame: a process's first frame and first collective
+        # set up the kernels' library and the communicator
+        render(sc, cam, mesh.key_seed(0))
+        reduce_ms.clear()
+        wait_ms.clear()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(sc, cam, mesh.key_seed(0))
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        launches = dict(ik.LAUNCHES)
+        render_reduce_ms, render_wait_ms = list(reduce_ms), list(wait_ms)
+        np.save(os.path.join(out_dir, f"img_w{world}_r{rank}.npy"),
+                img.cpu().numpy())
+
+        target = torch.as_tensor(np.load(os.path.join(out_dir,
+                                                      "target.npy")),
+                                 device=dev)
+        step = mesh.train_step_fn(WIDTH, HEIGHT, SPP, DEPTH,
+                                  pixel_batch=STRIP, group=group,
+                                  device=dev)
+        train = []
+        for _ in range(2 if world == 1 else 1):   # world 1: run to run
+            scp, params = trainable(sc)
+            with torch.no_grad():
+                for p in params.values():
+                    p.mul_(RANKS_START)
+            opt = torch.optim.Adam(params.values(), lr=RANKS_LR)
+            reduce_ms.clear()
+            wait_ms.clear()
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = step(params, opt, scp, cam, target,
+                               mesh.key_seed(RANKS_SEED),
+                               torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            train.append(dict(
+                seconds=time.perf_counter() - t0,
+                launches=dict(ik.LAUNCHES), reduce_ms=list(reduce_ms),
+                wait_ms=list(wait_ms),
+                loss=float(loss),
+                grads={k: g.cpu().tolist() for k, g in grads.items()},
+                params={k: p.detach().cpu().tolist()
+                        for k, p in params.items()}))
+        with open(os.path.join(out_dir, f"w{world}_r{rank}.json"), "w") as f:
+            json.dump(dict(world=world, rank=rank, backend=backend,
+                           device=str(dev), frame_s=frame_s,
+                           launches=launches,
+                           render_reduce_ms=render_reduce_ms,
+                           render_wait_ms=render_wait_ms, train=train),
+                      f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(backend, world, out_dir):
+    """Spawn one group of ``world`` ranks; -> each rank's record. Fails
+    if a rank fails or outlives RANKS_TIMEOUT_S; kills what is left."""
+    import numpy as np
+    import torch.multiprocessing as tmp
+
+    rdzv = os.path.join(out_dir, f"rdzv_{backend}_{world}")
+    ctx = tmp.start_processes(_rank_worker,
+                              args=(world, backend, rdzv, out_dir),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            require(time.monotonic() < deadline, "ranks",
+                    f"{backend} world size {world}: a rank hung past "
+                    f"{RANKS_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"w{world}_r{r}.json")) as f:
+            rec = json.load(f)
+        rec["image"] = np.load(os.path.join(out_dir,
+                                            f"img_w{world}_r{r}.npy"))
+        out.append(rec)
+    return out
+
+
+def _rel(a, b):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / np.abs(b)).max())
+
+
+def phase_ranks(img3):
+    """The multi-rank path (``parallel.mesh.render_fn`` and
+    ``train_step_fn`` over a process group) on the one card: world size
+    1 over NCCL and 2 over gloo, both ranks on cuda:0. Each frame
+    bit-equal to ``main``'s image; the world-size-2 train step's loss and
+    gradients against world size 1's; the params equal on every rank."""
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        np.save(os.path.join(out_dir, "target.npy"),
+                img3.astype(np.float32))
+        runs = {world: _run_ranks(backend, world, out_dir)
+                for backend, world in RANKS}
+    ranks, checks = [], {}
+    for world, recs in runs.items():
+        for rec in recs:
+            img = rec.pop("image")
+            equal = bool(np.array_equal(img.astype(np.float64), img3))
+            require(equal, "ranks",
+                    f"world {world} rank {rec['rank']}: the frame differs "
+                    f"from main's image (max |diff| "
+                    f"{float(np.abs(img - img3).max())})")
+            for launches in [rec["launches"]] + [t["launches"]
+                                                 for t in rec["train"]]:
+                require(all(n > 0 for n in launches.values()), "ranks",
+                        f"world {world} rank {rec['rank']}: a kernel was "
+                        f"not launched: {launches}")
+            ranks.append(dict(rec, frame_equal_to_main=equal))
+    one = runs[1][0]["train"]
+    checks["world1_repeat"] = dict(
+        loss_rel=_rel(one[1]["loss"], one[0]["loss"]),
+        grad_rel={k: _rel(one[1]["grads"][k], one[0]["grads"][k])
+                  for k in TRAIN_PARAMS})
+    two = [rec["train"][0] for rec in runs[2]]
+    checks["world2_vs_world1"] = dict(
+        loss_rel=_rel(two[0]["loss"], one[0]["loss"]),
+        grad_rel={k: _rel(two[0]["grads"][k], one[0]["grads"][k])
+                  for k in TRAIN_PARAMS},
+        params_equal_on_ranks=all(t["params"] == two[0]["params"]
+                                  for t in two))
+    c = checks["world2_vs_world1"]
+    fields = dict(phase="ranks", ok=True, width=WIDTH, height=HEIGHT,
+                  spp=SPP, depth=DEPTH, pixel_batch=STRIP,
+                  seconds=time.perf_counter() - t0, ranks=ranks,
+                  checks=checks, loss_rtol=RANKS_LOSS_RTOL,
+                  grad_rtol=RANKS_GRAD_RTOL,
+                  four_cards="not run: this machine holds one card, so "
+                             "the four-card NCCL path is unmeasured")
+    require(c["params_equal_on_ranks"] and c["loss_rel"] <= RANKS_LOSS_RTOL
+            and all(v <= RANKS_GRAD_RTOL for v in c["grad_rel"].values()),
+            "ranks", json.dumps(fields))
+    emit(**fields)
 
 
 def centre_pixels(width, height, window):
@@ -1650,6 +2036,9 @@ def main(argv=None):
     hit4, any4 = phase_kernels(sc4, cam4, dev, W4, H4, DEPTH4,
                                W4 * H4 // STRIP // 2, phase="kernels4")
     launches4 = phase_ladder(sc4, cam4, dev)
+    del sc4, cam4
+    phase_bvh(sc, cam, dev)
+    phase_ranks(img3)
     emit(phase="total", ok=True, seconds=time.time() - t_start)
 
     records = []

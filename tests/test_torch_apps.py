@@ -33,6 +33,7 @@ from yhair_tpu_torch.apps import invert
 from yhair_tpu_torch.apps import render as app
 from yhair_tpu_torch.apps import view
 from yhair_tpu_torch.io import image as img_io
+from yhair_tpu_torch.accel.traverse import DeviceBVH
 from yhair_tpu_torch.ops.clusters import Clusters
 
 torch.set_num_threads(1)
@@ -116,7 +117,8 @@ def hairball():
 
 
 def test_spp_per_pass_matches_reference(hairball):
-    sc, cam = common.build_device_scene(*hairball, device="cpu")
+    sc, cam = common.build_device_scene(*hairball, accel="cluster",
+                                        device="cpu")
     assert isinstance(sc.accel, Clusters)
     got = common.progressive_render(sc, cam, RES, RES, 4, DEPTH, seed=1,
                                     spp_per_pass=2, log=None, device="cpu")
@@ -153,7 +155,8 @@ def test_checkpoint_resumes_across_packages(tmp_path, hairball, first):
     """2 samples rendered and checkpointed by one package, 2 more by the
     other: the whole matches either package's uninterrupted render."""
     ck = str(tmp_path / "render.ckpt.npz")
-    sc, cam = common.build_device_scene(*hairball, device="cpu")
+    sc, cam = common.build_device_scene(*hairball, accel="cluster",
+                                        device="cpu")
     rsc, rcam, nearest = rcommon.build_device_scene(*hairball,
                                                     accel="cluster")
 
@@ -217,7 +220,15 @@ def test_invert_writes_tensorboard_and_profile(tmp_path):
 
 
 def test_build_device_scene_backends(hairball):
+    # auto: the BVH on a CPU device (the cluster search on the card), as
+    # the reference picks by platform
     sc, _ = common.build_device_scene(*hairball, accel="auto", device="cpu")
+    assert isinstance(sc.accel, DeviceBVH) and sc.accel.leaf_size == 4
+    sc, _ = common.build_device_scene(*hairball, accel="bvh", leaf_size=8,
+                                      device="cpu")
+    assert isinstance(sc.accel, DeviceBVH) and sc.accel.leaf_size == 8
+    sc, _ = common.build_device_scene(*hairball, accel="cluster",
+                                      device="cpu")
     assert isinstance(sc.accel, Clusters)
     for kw in ({"accel": "brute"}, {"use_bvh": False}):
         sc, _ = common.build_device_scene(*hairball, device="cpu", **kw)
@@ -225,8 +236,8 @@ def test_build_device_scene_backends(hairball):
     sc, _ = common.build_device_scene(*gen.single_strand(), accel="cluster",
                                       device="cpu")
     assert sc.accel is None          # <= 64 segments: brute force
-    with pytest.raises(NotImplementedError, match="A.3"):
-        common.build_device_scene(*hairball, accel="bvh", device="cpu")
+    with pytest.raises(ValueError, match="unknown accel"):
+        common.build_device_scene(*hairball, accel="kd", device="cpu")
 
 
 def _convert_inputs(d):

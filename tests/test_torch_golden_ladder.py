@@ -33,7 +33,8 @@ def test_port_rerender_matches_golden(n):
         stats = json.load(f)
     gold = img_io.load_pfm(os.path.join(GOLD, f"config{n}.pfm"))
     cfg = CONFIGS[n]
-    sc, cam = common.build_device_scene(*cfg["fn"](), device="cpu")
+    sc, cam = common.build_device_scene(*cfg["fn"](), accel="cluster",
+                                        device="cpu")
     img = common.progressive_render(sc, cam, cfg["res"], cfg["res"],
                                     cfg["spp"], cfg["depth"], seed=0,
                                     log=None, device="cpu")

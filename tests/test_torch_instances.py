@@ -75,7 +75,7 @@ def wig():
                  segment_mat_id=np.zeros(len(scene_d["segments"][0]),
                                          np.int64))
     sc_cl, cl = build_scene_clusters(tscene.from_dict(table, device="cpu"),
-                                     device="cpu")
+                                     device="cpu", use_native=False)
     # from the float32 segments the port's scene holds
     jcl = jcmod.build(*(np.asarray(a, np.float32)
                         for a in scene_d["segments"]), use_native=False)
@@ -166,7 +166,7 @@ def test_near_clip_is_world_t_min_at_any_scale():
                  np.array([1e-3]))
     sc, cl = build_scene_clusters(tscene.from_dict(
         {"segments": (p0, p1, r, r), "hair_material": gen.DEFAULT_HAIR},
-        device="cpu"), device="cpu")
+        device="cpu"), device="cpu", use_native=False)
     ic = tinst.build_instanced(cl, [[[8, 0, 0], [0, 8, 0], [0, 0, 8],
                                      [0, 0, 0]]], device="cpu")
     o = torch.tensor([[0.0, 4e-4, 0.0]])

@@ -59,7 +59,7 @@ def test_cluster_build_bit_equal(setup):
     scene_d, *_ = setup
     p0, p1, r0, r1 = (np.asarray(a, np.float32) for a in scene_d["segments"])
     want = jclusters.build(p0, p1, r0, r1, use_native=False)
-    got = tclusters.build(p0, p1, r0, r1, device="cpu")
+    got = tclusters.build(p0, p1, r0, r1, device="cpu", use_native=False)
     assert got.n_clusters == want.n_clusters
     for name in ("s0", "s1", "tc", "cmin", "cmax", "seg_index"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),

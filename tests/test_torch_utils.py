@@ -106,7 +106,7 @@ def test_assert_finite_concrete(bad):
 
 def _config1(res=16, scene=None):
     sc, cam = common.build_device_scene(*(scene or gen.single_strand()),
-                                        device="cpu")
+                                        accel="cluster", device="cpu")
     target = torch.as_tensor(np.float32(common.progressive_render(
         sc, cam, res, res, 1, 2, seed=0, log=None, device="cpu")))
     return sc, cam, target

@@ -10,7 +10,8 @@ It renders and differentiates scenes of hair segments (one material or
 a per-shape table of them, posed instances), Bezier curves, spheres,
 planes, triangle meshes, point and area lights, a constant environment
 or an environment map, and textures (the ladder's configs 1-5), through
-the cluster search or by brute force. Scenes come from the ladder's
+the cluster search, the skip-pointer BVH or by brute force, on one card
+or over the ranks of a ``torch.distributed`` group. Scenes come from the ladder's
 generators or from scene files (JSON beside PLY, .hair, OBJ and image
 files).
 
@@ -20,11 +21,13 @@ Layer map:
   core/        RNG layout, camera, scene tensors, environment map, textures
   geometry/    ray-segment closest approach, brute-force nearest hit,
                ray-triangle search, Bezier curves, mesh shape ops (numpy)
-  accel/       median-split leaf order (host numpy), posed instances
+  accel/       LBVH build (host numpy), the native C++ cluster builder
+               (ctypes), the skip-pointer BVH walk, posed instances
   ops/         clusters, cluster lists, the two CUDA kernels + plain twins
   bsdf/        hair and surface BSDFs
   integrator/  wavefront path tracer
-  parallel/    counter-hash uniforms, the tile pixel order, training step
+  parallel/    counter-hash uniforms, the tile pixel order, rendering and
+               training steps over process-group ranks
   utils/       render and training checkpoints, NaN and finite checks
   apps/        the render, invert, convert and view CLIs and the
                progressive renderer they share (apps/common.py)

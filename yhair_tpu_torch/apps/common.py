@@ -34,13 +34,14 @@ def build_device_scene(scene_d, cam_d, use_bvh=True, leaf_size=4,
     """-> (Scene, Camera) on ``device`` (the card unless ``device="cpu"``).
 
     accel: 'cluster' (the cluster search: the two CUDA kernels on the
-    card, their plain versions on the CPU), 'brute' (no structure: the
-    brute-force scan), or 'auto' (the cluster search on every device).
-    'bvh' (the skip-pointer BVH, whose leaves hold ``leaf_size``
-    segments) is not ported yet: it raises. Scenes of at most
-    ``BRUTE_FORCE_SEGMENTS`` segments, or with use_bvh False, get no
-    structure, as in the reference.
+    card, their plain versions on the CPU), 'bvh' (the skip-pointer BVH
+    walk in torch ops, whose leaves hold ``leaf_size`` segments), 'brute'
+    (no structure: the brute-force scan), or 'auto' (the cluster search
+    on the card, the BVH on the CPU, as the reference picks by
+    platform). Scenes of at most ``BRUTE_FORCE_SEGMENTS`` segments, or
+    with use_bvh False, get no structure, as in the reference.
     """
+    from ..accel import build_scene_bvh
     from ..core import scene as tscene
     from ..ops import build_scene_clusters
 
@@ -51,12 +52,12 @@ def build_device_scene(scene_d, cam_d, use_bvh=True, leaf_size=4,
     cam = tscene.camera_from_dict(cam_d, device=dev)
     if not use_bvh or sc.segments.p0.shape[0] <= BRUTE_FORCE_SEGMENTS:
         return sc, cam
-    if accel == "bvh":
-        raise NotImplementedError(
-            f"accel='bvh' (leaf size {leaf_size}) is not ported yet "
-            "(ROADMAP A.3): use 'cluster' or 'brute'")
-    if accel in ("auto", "cluster"):
+    if accel == "auto":
+        accel = "bvh" if dev.type == "cpu" else "cluster"
+    if accel == "cluster":
         sc, _ = build_scene_clusters(sc, device=dev)
+    elif accel == "bvh":
+        sc, _ = build_scene_bvh(sc, leaf_size=leaf_size, device=dev)
     return sc, cam
 
 

@@ -5,12 +5,13 @@
       [--sampler path|naive|eyelight] [--seed 0] [--output out.png] \\
       [--hdr out.pfm|.exr|.hdr|.npy] [--exposure 0] [--filmic] \\
       [--checkpoint render.ckpt] [--spp-per-pass 1] [--no-bvh] \\
-      [--accel auto|cluster|brute] [--debug-nans] [--device cuda]
+      [--accel auto|cluster|bvh|brute] [--debug-nans] [--device cuda]
 
 Renders in tile-permuted strips of at most 65,536 rays with the
 reference's counter-hash uniforms (the same seed gives the reference's
-sample streams), through the cluster search unless the scene is tiny or
---accel brute / --no-bvh ask for the brute-force scan. A scene file
+sample streams), through the cluster search on the card and the BVH walk
+on the CPU (--accel auto), unless the scene is tiny or --accel brute /
+--no-bvh ask for the brute-force scan. A scene file
 renders at 256x256, 16 spp, 6 bounces unless told otherwise; a ladder
 config at its own spec. --output is tonemapped for .png/.jpg and written
 as HDR for any other suffix; --checkpoint resumes an interrupted render
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import time
 
+from ..accel.traverse import DeviceBVH
 from ..io import image as img_io
 from ..io.image import load_pfm, save_pfm  # noqa: F401 (re-exported)
 from .common import (build_device_scene, load_config,  # noqa: F401
@@ -57,8 +59,8 @@ def build_parser():
                    help="no acceleration structure: the brute-force scan")
     p.add_argument("--accel", choices=["auto", "cluster", "bvh", "brute"],
                    default="auto",
-                   help="intersection backend (auto: cluster; bvh is not "
-                        "ported yet)")
+                   help="intersection backend (auto: cluster on the card, "
+                        "bvh on the CPU)")
     p.add_argument("--debug-nans", action="store_true",
                    help="raise at the first NaN-producing op "
                         "(utils/debug.py)")
@@ -89,8 +91,12 @@ def main(argv=None):
     sc, cam = build_device_scene(scene_d, cam_d, use_bvh=not args.no_bvh,
                                  accel=args.accel, device=args.device)
     load_s = time.time() - t0
-    accel = ("none" if sc.accel is None
-             else f"{sc.accel.n_clusters} clusters")
+    if sc.accel is None:
+        accel = "none"
+    elif isinstance(sc.accel, DeviceBVH):
+        accel = f"bvh, {sc.accel.n_leaves} leaves"
+    else:
+        accel = f"{sc.accel.n_clusters} clusters"
     print(f"scene: {sc.segments.p0.shape[0]} segments, "
           f"{sc.n_triangles} triangles, {sc.n_lights} point lights, "
           f"{sc.n_area_lights} area lights, env map "

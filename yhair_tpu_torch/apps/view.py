@@ -54,7 +54,9 @@ def build_parser():
                    help="stop after this many passes (0 = unlimited)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--accel", choices=["auto", "cluster", "bvh", "brute"],
-                   default="auto")
+                   default="auto",
+                   help="intersection backend (auto: cluster on the card, "
+                        "bvh on the CPU)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p

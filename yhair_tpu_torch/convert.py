@@ -1,9 +1,9 @@
 """Hand the reference's scene state to the port.
 
-The tests turn a ``yhair_tpu`` Scene, Clusters, InstancedClusters or
-parameter dict into numpy arrays (``{name: np.asarray(leaf)}``, see
-``flat_fields``) and build the port's counterpart from them here, so
-both packages compute on the same arrays.
+The tests turn a ``yhair_tpu`` Scene, Clusters, InstancedClusters,
+DeviceBVH or parameter dict into numpy arrays
+(``{name: np.asarray(leaf)}``, see ``flat_fields``) and build the port's
+counterpart from them here, so both packages compute on the same arrays.
 Names are the reference's field paths joined with dots ("segments.p0",
 "hair.beta_m", "accel.tc", ...); static ints ("accel.n_clusters") stay
 ints. This module imports no JAX: ``np.asarray`` reads any array.
@@ -11,10 +11,13 @@ ints. This module imports no JAX: ``np.asarray`` reads any array.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
 from .accel.instanced import InstancedClusters
+from .accel.traverse import DeviceBVH
 from .bsdf.hair import HairMaterial
 from .bsdf.surface import SurfaceMaterial
 from .core.scene import Scene
@@ -66,10 +69,18 @@ def instanced_from_numpy(fields: dict, device=None) -> InstancedClusters:
         for k in InstancedClusters._fields[1:]))
 
 
+def bvh_from_numpy(fields: dict, device=None) -> DeviceBVH:
+    """DeviceBVH from {node_min, node_max, skip, p0, p1, r0, r1,
+    seg_index, n_leaves, leaf_size}."""
+    return DeviceBVH.from_host(SimpleNamespace(**fields),
+                               device=resolve_device(device))
+
+
 def scene_from_numpy(fields: dict, device=None) -> Scene:
     """Scene from the reference's flattened fields (hair leaves scalar or
-    table-shaped, curves, a Clusters or InstancedClusters accel); raises
-    NotImplementedError for a feature in ``_UNSUPPORTED``."""
+    table-shaped, curves, a Clusters, InstancedClusters or DeviceBVH
+    accel); raises NotImplementedError for a feature in
+    ``_UNSUPPORTED``."""
     dev = resolve_device(device)
     found = [what for k, what in _UNSUPPORTED.items()
              if k in fields and np.shape(fields[k])[0]]
@@ -88,6 +99,8 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
         accel = instanced_from_numpy(sub, dev)
     elif "tc" in sub:
         accel = clusters_from_numpy(sub, dev)
+    elif "node_min" in sub:
+        accel = bvh_from_numpy(sub, dev)
     nested = {"segments": Segments, "hair": HairMaterial,
               "surf_mat": SurfaceMaterial, "tris": Triangles}
 

@@ -6,8 +6,8 @@ surface-material table (spheres, then planes, then meshes), spheres,
 planes, triangle meshes, point lights, area lights (emissive spheres and
 mesh triangles), a constant environment, an equirectangular environment
 map with its sampling tables, textures, first-class cubic Bezier curves
-and the acceleration structure (``Clusters``, ``InstancedClusters`` or
-None for the brute-force scan).
+and the acceleration structure (``Clusters``, ``InstancedClusters``,
+``DeviceBVH`` or None for the brute-force scan).
 """
 
 from __future__ import annotations
@@ -71,8 +71,8 @@ class Scene(NamedTuple):
     crv_r0: torch.Tensor = None      # (C,) root radius
     crv_r1: torch.Tensor = None      # (C,) tip radius
     crv_mat_id: torch.Tensor = None  # (C,) int32 hair-material table id
-    accel: object = None       # Clusters, InstancedClusters, or None ->
-                               # the brute-force scan
+    accel: object = None       # Clusters, InstancedClusters, DeviceBVH,
+                               # or None -> the brute-force scan
 
     @property
     def n_spheres(self):

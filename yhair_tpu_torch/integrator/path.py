@@ -36,8 +36,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..accel import instanced
+from ..accel import instanced, traverse
 from ..accel.instanced import InstancedClusters
+from ..accel.traverse import DeviceBVH
 from ..bsdf import hair as th
 from ..bsdf import surface as ts
 from ..core.camera import Camera, camera_rays
@@ -98,13 +99,15 @@ def _permuted(fn, perm, *args):
 
 def _nearest(scene: Scene, o, d, chunk, perm=None):
     """Segment search: the cluster kernels through scene.accel (flat or
-    instanced), else the brute-force scan. The search is a discrete
-    argmin: it sees detached rays."""
+    instanced), the BVH walk, else the brute-force scan. The search is a
+    discrete argmin: it sees detached rays."""
     o, d = o.detach(), d.detach()
     if isinstance(scene.accel, Clusters):
         fn = ik.make_nearest_fn(scene.accel, device=o.device)
     elif isinstance(scene.accel, InstancedClusters):
         fn = instanced.make_nearest_fn(scene.accel, device=o.device)
+    elif isinstance(scene.accel, DeviceBVH):
+        fn = traverse.make_nearest_fn(scene.accel)
     else:
         def fn(o_, d_):
             return seg.nearest_hit(o_, d_, scene.segments, chunk=chunk)
@@ -345,16 +348,17 @@ def _ray_sort_perm(o, d, alive, lo, inv_ext):
 
 
 def _sort_bounds(scene: Scene):
-    """Box of the real segments for the Morton sort. The cluster padding
-    segments (at 1e8) are left out: the reference's bounds include them,
-    which collapses every origin into Morton cell 0 (octant-only sort).
+    """Box of the real segments for the Morton sort. The padding segments
+    of the clusters and of the BVH (at 1e8) are left out: the reference's
+    bounds include them, which collapses every origin into Morton cell 0
+    (octant-only sort).
     For instances, the canonical box's bounding sphere posed by every
     frame, as the reference does (only the sort's scale, never a
     result)."""
     p0, p1 = scene.segments.p0.detach(), scene.segments.p1.detach()
     ic = scene.accel
     cl = ic.cl if isinstance(ic, InstancedClusters) else ic
-    if isinstance(cl, Clusters):
+    if isinstance(cl, (Clusters, DeviceBVH)):
         real = cl.seg_index >= 0
         p0, p1 = p0[real], p1[real]
     lo = torch.minimum(p0.amin(0), p1.amin(0))

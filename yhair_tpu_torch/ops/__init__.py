@@ -15,13 +15,16 @@ from ..geometry.segments import Segments
 from . import clusters
 
 
-def build_scene_clusters(scene: Scene, cluster_size=128, device=None):
+def build_scene_clusters(scene: Scene, cluster_size=128, device=None,
+                         use_native=True, method="median"):
     """-> (scene with cluster-ordered segments and accel, Clusters), both
-    on ``device`` (the card unless ``device="cpu"``)."""
+    on ``device`` (the card unless ``device="cpu"``). use_native and
+    method go to ``clusters.build``."""
     dev = resolve_device(device)
     segs = scene.segments
     cl = clusters.build(*(x.cpu().numpy() for x in segs),
-                        cluster_size=cluster_size, device=dev)
+                        cluster_size=cluster_size, device=dev,
+                        use_native=use_native, method=method)
     reordered = Segments(cl.s0[:, :3].contiguous(),
                          cl.s1[:, :3].contiguous(),
                          cl.s0[:, 3].contiguous(), cl.s1[:, 3].contiguous())

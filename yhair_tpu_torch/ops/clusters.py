@@ -1,6 +1,7 @@
 """Cluster acceleration structure (``yhair_tpu/ops/clusters.py``).
 
-Segments are median-split ordered and packed into clusters of 128; each
+Segments are median-split ordered (by the native C++ builder where it
+can be had, else by numpy) and packed into clusters of 128; each
 cluster has an AABB and a precomputed (16, 128) tile that the CUDA
 kernels read. The hairball's 120k segments give C = 1024 clusters and an
 8 MB tile array, which stays in the H100's 50 MB L2.
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..accel import lbvh
+from ..accel import lbvh, native
 
 CLUSTER_SIZE = 128
 
@@ -55,19 +56,41 @@ class Clusters(NamedTuple):
             "s0", "s1", "tc", "cmin", "cmax", "seg_index")})
 
 
-def build(p0, p1, r0, r1, cluster_size=CLUSTER_SIZE, device="cpu"):
-    """Host-side build (numpy) of the median-split clusters."""
-    host = lbvh.build_leaves(p0, p1, r0, r1, leaf_size=cluster_size)
-    # empty (all-padding) clusters -> never-hit sentinel boxes
-    bad = ~np.isfinite(host.leaf_min).all(1)
-    cmin = np.where(bad[:, None], 4e30, host.leaf_min).astype(np.float32)
-    cmax = np.where(bad[:, None], 4e30, host.leaf_max).astype(np.float32)
-    s0 = np.concatenate([host.p0, host.r0[:, None]], 1).astype(np.float32)
-    s1 = np.concatenate([host.p1, host.r1[:, None]], 1).astype(np.float32)
-    tc = _tiles(s0, s1, host.seg_index, int(host.n_leaves), cluster_size)
+def build(p0, p1, r0, r1, cluster_size=CLUSTER_SIZE, device="cpu",
+          use_native=True, method="median"):
+    """Host-side build: the native C++ builder when it can be had
+    (``accel/native.py``), else numpy (``accel/lbvh.py``).
+
+    method: "median" (longest-axis median splits: about 2x tighter
+    cluster boxes than Morton runs on dense hair) or "morton". The two
+    routes may order a scene's segments differently (the native build
+    reads float32 inputs); the kernels' (t, original id) tie-break makes
+    the hits the same.
+    """
+    out = (native.build_clusters(p0, p1, r0, r1, cluster_size,
+                                 method=method) if use_native else None)
+    if out is not None:
+        s0, s1 = out["s0"], out["s1"]
+        cmin, cmax = out["cmin"], out["cmax"]
+        seg_index, c = out["seg_index"], out["n_clusters"]
+    else:
+        host = lbvh.build(p0, p1, r0, r1, leaf_size=cluster_size,
+                          method=method)
+        c, seg_index = int(host.n_leaves), host.seg_index
+        # the leaf boxes: heap level [n_leaves, 2 n_leaves); empty
+        # (all-padding) clusters -> never-hit sentinel boxes
+        cmin, cmax = host.node_min[c:], host.node_max[c:]
+        bad = ~np.isfinite(cmin).all(1)
+        cmin = np.where(bad[:, None], 4e30, cmin).astype(np.float32)
+        cmax = np.where(bad[:, None], 4e30, cmax).astype(np.float32)
+        s0 = np.concatenate([host.p0, host.r0[:, None]], 1).astype(
+            np.float32)
+        s1 = np.concatenate([host.p1, host.r1[:, None]], 1).astype(
+            np.float32)
+    tc = _tiles(s0, s1, seg_index, c, cluster_size)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
     return Clusters(s0=t(s0), s1=t(s1), tc=t(tc), cmin=t(cmin),
-                    cmax=t(cmax), seg_index=t(host.seg_index),
-                    n_clusters=int(host.n_leaves), cluster_size=cluster_size)
+                    cmax=t(cmax), seg_index=t(seg_index), n_clusters=c,
+                    cluster_size=cluster_size)

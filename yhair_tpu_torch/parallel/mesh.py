@@ -1,14 +1,18 @@
-"""Rendering and inverse-rendering steps on one card
+"""Rendering and inverse-rendering steps over ranks
 (``yhair_tpu/parallel/mesh.py``).
 
-The reference shards the ray batch over a device mesh; the port runs on
-one card, so what is here is the screen-tile pixel permutation, the
-per-(pixel, sample, dim) hash that makes a render reproducible whatever
-the batching, ``train_step_fn`` without a mesh, and ``PARAM_BOUNDS``.
-A training step traces its rays in tile-order strips of at most
+The reference shards the ray batch over a device mesh with
+``shard_map``; here the ranks of a ``torch.distributed`` process group
+take its place (``make_group``). The ray batch, in the screen-tile pixel
+order, is cut into one contiguous share per rank; the scene is
+replicated. ``render_fn`` combines the shares with one all-reduce in
+which each element has exactly one nonzero contributor, so the image is
+bit-identical for any world size; ``train_step_fn`` all-reduces the loss
+and the gradients, so every rank takes the same step. The
+per-(pixel, sample, dim) hash makes a ray's uniforms independent of the
+batching. Each rank traces its share in tile-order strips of at most
 ``MAX_RAYS_PER_STRIP`` rays, which bounds the memory a strip's autograd
-graph holds. The reference's ``render_fn`` is
-``apps.common.progressive_render`` here.
+graph holds.
 
 torch has no unsigned 32-bit shift or add on every device, so the hash is
 done in int64 and cut back to 32 bits after every operation; the result
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.rng import n_uniform_dims
 from ..device import resolve_device
@@ -112,6 +117,73 @@ def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
                       return_alive=return_alive, device=dev)
 
 
+def make_group(ranks=None, device=None):
+    """-> (process group, this rank's device): the counterpart of the
+    reference's ``make_mesh``. The caller has run
+    ``torch.distributed.init_process_group``. ranks: None for the
+    default group, else a new group over those global ranks (every rank
+    must call this then, as ``new_group`` requires). device: None for
+    the card of this rank (global rank modulo the cards), or a device
+    to use as given ("cpu" with the gloo backend)."""
+    if not dist.is_initialized():
+        raise RuntimeError("init_process_group first")
+    group = dist.group.WORLD if ranks is None else dist.new_group(ranks)
+    if device is None:
+        resolve_device(None)
+        device = torch.device("cuda",
+                              dist.get_rank() % torch.cuda.device_count())
+    return group, torch.device(device)
+
+
+def _share(n, group):
+    """This rank's contiguous slice of n items (all of them without a
+    group)."""
+    if group is None:
+        return slice(0, n)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n % world:
+        raise ValueError(f"{n} rays or pixels do not divide over "
+                         f"{world} ranks")
+    k = n // world
+    return slice(rank * k, (rank + 1) * k)
+
+
+def render_fn(width, height, spp, max_depth=6, chunk=2048, sampler="path",
+              edge_softness=0.0, group=None, device=None):
+    """Build render(scene, cam, seed_word) -> (H, W, 3) float32 image,
+    each pixel the mean of its spp samples.
+
+    group: None traces every ray here; with a process group, rank r
+    traces the r-th contiguous share of the tile-ordered flat ray list
+    (the ray count must divide by the world size), in strips of at most
+    ``MAX_RAYS_PER_STRIP`` rays, into a zero-filled (rays, 3) buffer
+    that one ``all_reduce(SUM)`` combines. Each element has one nonzero
+    contributor, so the sum is exact and the image the same for every
+    world size. device: this rank's device (``make_group``'s).
+    """
+    dev = resolve_device(device)
+    n_rays = width * height * spp
+    share = _share(n_rays, group)
+    perm, inv = tile_pixel_permutation(width, height)
+    pid = torch.as_tensor(np.repeat(perm, spp), device=dev)
+    sid = torch.arange(spp, device=dev).repeat(width * height)
+    inv = torch.as_tensor(inv, dtype=torch.int64, device=dev)
+
+    @torch.no_grad()
+    def render(scene, cam, seed_word):
+        flat = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+        for a in range(share.start, share.stop, MAX_RAYS_PER_STRIP):
+            sl = slice(a, min(a + MAX_RAYS_PER_STRIP, share.stop))
+            flat[sl] = trace_pixels(scene, cam, width, height, pid[sl],
+                                    sid[sl], seed_word, max_depth, chunk,
+                                    sampler, edge_softness, device=dev)
+        if group is not None:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        img = flat.reshape(-1, spp, 3).mean(1)[inv]
+        return img.reshape(height, width, 3)
+    return render
+
+
 def pixel_strips(n_pixels, spp):
     """Slices of a pixel list, each traced as one batch of at most
     ``MAX_RAYS_PER_STRIP`` rays. A pixel's spp rays are contiguous, so a
@@ -143,8 +215,21 @@ def draw_tiles(n_tiles, k, generator):
     return torch.randperm(n_tiles, generator=generator)[:k]
 
 
+def _all_reduce_sum(group, loss, *grads):
+    """Sum the loss (returned) and the gradients (in place) over the
+    group's ranks in one all-reduce of a flat buffer."""
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    at = 1
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return flat[0]
+
+
 def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
-                  pixel_batch=None, edge_softness=0.0, device=None):
+                  pixel_batch=None, edge_softness=0.0, group=None,
+                  device=None):
     """Build an inverse-rendering step:
     step(params, opt, scene, cam, target, seed_word, generator=None)
         -> (loss, grads)
@@ -156,7 +241,14 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
     target: (H, W, 3). The loss is the mean squared error of the pixel
     means against the target. Each strip calls ``backward`` on its share
     of the loss, so the gradients accumulate to the whole batch's (up to
-    f32 summation order). Then, in the reference's order: the loss and
+    f32 summation order). With a process group (``make_group``), every
+    rank draws the same pixels (its generator seeded as the others'),
+    traces the r-th contiguous share of them, and its strips' parts of
+    the global loss (each over the global 3 P) are summed over the ranks
+    with the gradients in one ``all_reduce(SUM)``: every rank then steps
+    the same gradient, and the params stay equal on every rank. The
+    pixel count must divide by the world size. Then, in the reference's
+    order: the loss and
     gradients go through ``utils.debug.assert_finite`` (which raises
     only when YHAIR_CHECK_FINITE=1), non-finite gradient entries become
     0, ``opt.step()``, and each param is clamped in place to
@@ -177,6 +269,8 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
             or pixel_batch > width * height):
         raise ValueError(f"pixel_batch must be a multiple of {tile_px} "
                          f"and tile the image")
+    n_pixels = width * height if pixel_batch is None else pixel_batch
+    _share(n_pixels, group)           # raises unless it divides
     perm, _ = tile_pixel_permutation(width, height)
     all_pixels = torch.as_tensor(perm, device=dev)
 
@@ -197,21 +291,27 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
         for p in params.values():
             p.grad = None
         loss = torch.zeros((), device=dev)
-        for sl in pixel_strips(pixels.numel(), spp):
-            img = pixel_means(sc, cam, width, height, pixels[sl], spp,
+        mine = pixels[_share(pixels.numel(), group)]
+        for sl in pixel_strips(mine.numel(), spp):
+            img = pixel_means(sc, cam, width, height, mine[sl], spp,
                               seed_word, max_depth, chunk, edge_softness,
                               dev)
-            part = ((img - tgt[pixels[sl]]) ** 2).sum() / n
+            part = ((img - tgt[mine[sl]]) ** 2).sum() / n
             part.backward()
             loss = loss + part.detach()
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if group is not None:
+            loss = _all_reduce_sum(group, loss,
+                                   *(p.grad for p in params.values()))
         debug.assert_finite(loss, "train_step loss")
-        debug.assert_finite([p.grad for p in params.values()
-                             if p.grad is not None], "train_step grads")
+        debug.assert_finite([p.grad for p in params.values()],
+                            "train_step grads")
         grads = {}
         for k, p in params.items():
-            g = torch.zeros_like(p) if p.grad is None else p.grad
             # one degenerate sample must not poison Adam's moments
-            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            g = torch.where(torch.isfinite(p.grad), p.grad, 0.0)
             p.grad = g
             grads[k] = g.clone()
         opt.step()
