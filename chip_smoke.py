@@ -89,7 +89,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             ``goldens/config5_stats.json``; the p99 and the 256x256
             box-downsample's mean |diff| from ``goldens/config5.pfm``
             are printed.
-15. scenefile3  (run after ``golden``) config 3 written as a scene file
+15. invert5spec  config 5's inverse at spec (1024x1024, 64 spp, depth
+            6, 2,048-pixel batches; ``ladder_gpu.py`` runs the whole
+            120 steps) through ``invert`` on golden5's image, written to
+            a temporary PFM, as the target: three steps in one run (the
+            launch counts set to 0 just before and read just after),
+            then two steps, a checkpoint and one resumed step, whose
+            params, gradients and losses must equal the uninterrupted
+            run's bit for bit; losses and gradients finite, every param
+            moved; the resumed step's launches recorded and its first
+            hit and any launch held against their plain versions
+            (bit-equal); the seconds of each step.
+16. scenefile3  (run after ``golden``) config 3 written as a scene file
             by ``apps.convert genscene`` and rendered by ``apps.render
             --scene`` at the bench frame: the HDR bit-equal to ``main``'s
             image, the PNG (read back by the port's decoder) equal to its
@@ -97,22 +108,22 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             ``--checkpoint`` bit-equal to the uninterrupted one, and
             ``invert --scene`` with ``train``'s argv: the first loss
             bit-equal to ``train``'s, the later ones within 1e-5.
-16. scenefile5  config 5 written as a scene file and rendered by
+17. scenefile5  config 5 written as a scene file and rendered by
             ``render --scene`` at 1024x1024, 1 spp, depth 6: every scene
             tensor equal to ``--config 5``'s but the env map's pmf and
             cdf (within 1e-7: the map goes through a float32 PFM); the
             image's mean within 0.1% of ``main5``'s and >= 99.9% of its
             values within 5e-3. Load and frame seconds, file bytes,
             Mrays/s, launches.
-17. scene4, kernels4  ladder config 4 (the scalp model: 300,000
+18. scene4, kernels4  ladder config 4 (the scalp model: 300,000
             segments in 4,096 clusters) and ``kernels`` on the centre
             strip of its 512x512 frame at depth 6.
-18. ladder  config 4 at its spec (512x512, depth 6) through
+19. ladder  config 4 at its spec (512x512, depth 6) through
             ``progressive_render`` on the first 8 of the golden's 32
             sample streams (the only cut), launch counts set to 0 just
             before and read just after: the mean within 1% of
             ``goldens/config4_stats.json``.
-19. bvh     config 3's full geometry built with ``accel="bvh"`` on the
+20. bvh     config 3's full geometry built with ``accel="bvh"`` on the
             card (120,000 segments, leaf size 4: 32,768 leaves), whose
             skip-pointer walk is torch ops with a host sync every 16
             steps and no kernel of its own. (a) Strip 0's 65,536 camera
@@ -126,7 +137,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             to strip 0 (and saying so) if the whole frame would take
             more than 150 s. The walk's steps per query, ms per query
             and the seconds are printed.
-20. ranks   the multi-rank path (``parallel.mesh.render_fn`` and
+21. ranks   the multi-rank path (``parallel.mesh.render_fn`` and
             ``train_step_fn`` over a ``torch.distributed`` group), in
             spawned processes on the one card: world size 1 over NCCL,
             2 over gloo (NCCL refuses two ranks on one device; both
@@ -150,8 +161,8 @@ device's idle share; then config 5's centre strip forward (``profile5``).
 
 A ``total`` line gives the script's seconds.
 The line before the last is the ``kernels`` record (each kernel on the
-config-3, the config-5, the instanced and the config-4 path), the last
-one
+config-3, the config-5, the instanced, the config-4 and the config-5
+inverse path), the last one
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -193,6 +204,8 @@ W4 = H4 = 512
 DEPTH4 = 6
 GOLDEN5_SPP = 4
 INVERT5_BATCH = 2048
+# the spec inverse's samples per pixel (BASELINE.json's config 5)
+SPEC5_SPP = 64
 GRAD5_WINDOW, GRAD5_DEPTH, GRAD5_RTOL = 32, 2, 1e-2
 # config 3 posed twice (tests/test_instances.py:32-38), hair-material
 # rows 0 and 1; the reference's gate of instanced against baked
@@ -433,6 +446,73 @@ def sentinel_check(rec, c, phase, n_blocks=4):
     return out
 
 
+def hold_hit(st, kinds, args, out, c, phase):
+    """One recorded hit launch against hit_pass_plain (bit-equal), then
+    timed: adds its ms, plain ms and bound to st and its list to kinds."""
+    import torch
+
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+
+    o, d, seeds, ids, counts, tc, k_cap = args
+    ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, c)
+    list_stats(kinds, f"hit k_cap={k_cap}", counts_p, k_cap)
+    plain, ms_plain = timed(lambda: ik.hit_pass_plain(
+        o, d, seeds, ids_p, counts_p, tc, k_cap))
+    for name, a, b in zip(("t", "idx", "oid"), out, plain):
+        require(torch.equal(a, b), phase,
+                f"hit kernel {name} differs from hit_pass_plain "
+                f"({int((a != b).sum())} rays)")
+    st["max_abs_err"] = max(st["max_abs_err"],
+                            float((out[0] - plain[0]).abs().max()))
+    _, ms = timed(lambda: ik.hit_pass(*args), 5)
+    add_bound(st, *bound_ms(
+        int(counts_p.sum()),
+        nbytes(o, d, *seeds, ids_p, counts_p, tc, *out)))
+    st["ms"] += ms
+    st["plain_ms"] += ms_plain
+
+
+def hold_any(st, kinds, args, out, visits, c, phase):
+    """One recorded any launch against any_pass_plain (bit-equal), then
+    timed, as ``hold_hit``."""
+    import torch
+
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+
+    o, d, t_cap, ids, counts, tc, k_cap = args
+    ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, c)
+    ls = list_stats(kinds, f"any k_cap={k_cap}", counts_p, k_cap)
+    (plain, need), ms_plain = timed(lambda: ik.any_pass_plain(
+        o, d, t_cap, ids_p, counts_p, tc, k_cap, return_visits=True))
+    require(torch.equal(out, plain), phase,
+            f"any kernel differs from any_pass_plain "
+            f"({int((out != plain).sum())} rays)")
+    # the bound counts what a sequential front-to-back walk needs,
+    # whatever extra work the kernel's parallel items did
+    ls["needed_visits"] = ls.get("needed_visits", 0) + int(need.sum())
+    ls["kernel_visits"] = ls.get("kernel_visits", 0) + int(visits.sum())
+    _, ms = timed(lambda: ik.any_pass(*args), 5)
+    add_bound(st, *bound_ms(
+        int(need.sum()), nbytes(o, d, t_cap, ids_p, counts_p, tc, out)))
+    st["ms"] += ms
+    st["plain_ms"] += ms_plain
+
+
+def per_launch(st):
+    """Turn st's sums into means per compared launch; name the bound."""
+    n = max(st["launches"], 1)
+    for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
+        st[k] /= n
+    st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]
+                      else "bytes")
+
+
+def launch_ms(hit_stats, any_stats):
+    return {k: {f: st[f] for f in ("ms", "plain_ms", "bound_ms", "ops_ms",
+                                   "bytes_ms")}
+            for k, st in (("hit", hit_stats), ("any", any_stats))}
+
+
 def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
                   strip=0, phase="kernels"):
     """Every launch of one strip against its plain version."""
@@ -459,45 +539,10 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
 
     hit_stats = new_stats(len(rec.hit))
     for args, out in rec.hit:
-        o, d, seeds, ids, counts, tc, k_cap = args
-        ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, c)
-        list_stats(kinds, f"hit k_cap={k_cap}", counts_p, k_cap)
-        plain, ms_plain = timed(lambda: ik.hit_pass_plain(
-            o, d, seeds, ids_p, counts_p, tc, k_cap))
-        for name, a, b in zip(("t", "idx", "oid"), out, plain):
-            require(torch.equal(a, b), phase,
-                    f"hit kernel {name} differs from hit_pass_plain "
-                    f"({int((a != b).sum())} rays)")
-        hit_stats["max_abs_err"] = max(
-            hit_stats["max_abs_err"],
-            float((out[0] - plain[0]).abs().max()))
-        _, ms = timed(lambda: ik.hit_pass(*args), 5)
-        add_bound(hit_stats, *bound_ms(
-            int(counts_p.sum()),
-            nbytes(o, d, *seeds, ids_p, counts_p, tc, *out)))
-        hit_stats["ms"] += ms
-        hit_stats["plain_ms"] += ms_plain
-
+        hold_hit(hit_stats, kinds, args, out, c, phase)
     any_stats = new_stats(len(rec.any))
     for args, out, visits in rec.any:
-        o, d, t_cap, ids, counts, tc, k_cap = args
-        ids_p, counts_p = ik._pack_lists(ids, counts, k_cap, c)
-        st = list_stats(kinds, f"any k_cap={k_cap}", counts_p, k_cap)
-        (plain, need), ms_plain = timed(lambda: ik.any_pass_plain(
-            o, d, t_cap, ids_p, counts_p, tc, k_cap, return_visits=True))
-        require(torch.equal(out, plain), phase,
-                f"any kernel differs from any_pass_plain "
-                f"({int((out != plain).sum())} rays)")
-        # the bound counts what a sequential front-to-back walk needs,
-        # whatever extra work the kernel's parallel items did
-        st["needed_visits"] = st.get("needed_visits", 0) + int(need.sum())
-        st["kernel_visits"] = st.get("kernel_visits", 0) + int(visits.sum())
-        _, ms = timed(lambda: ik.any_pass(*args), 5)
-        add_bound(any_stats, *bound_ms(
-            int(need.sum()),
-            nbytes(o, d, t_cap, ids_p, counts_p, tc, out)))
-        any_stats["ms"] += ms
-        any_stats["plain_ms"] += ms_plain
+        hold_any(any_stats, kinds, args, out, visits, c, phase)
 
     sentinel = sentinel_check(rec, c, phase) if c > ik._k_cap(c) else None
 
@@ -524,11 +569,7 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
         n_hits += int(hit.sum())
 
     for st in (hit_stats, any_stats):
-        n = max(st["launches"], 1)
-        for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
-            st[k] /= n
-        st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]
-                          else "bytes")
+        per_launch(st)
     emit(phase=phase, ok=True, strip_rays=STRIP, depth=depth,
          strip_index=strip, hit_launches=hit_stats["launches"],
          any_launches=any_stats["launches"], nearest_searches=len(
@@ -538,10 +579,7 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
          k_cap=ik._k_cap(c),
          sentinel_blocks=sum(v["sentinel_blocks"] for v in kinds.values()),
          sentinel_check=sentinel,
-         per_launch_ms={k: {f: st[f] for f in ("ms", "plain_ms", "bound_ms",
-                                              "ops_ms", "bytes_ms")}
-                        for k, st in (("hit", hit_stats),
-                                      ("any", any_stats))},
+         per_launch_ms=launch_ms(hit_stats, any_stats),
          lists=summarize_kinds(kinds))
     return hit_stats, any_stats
 
@@ -729,6 +767,7 @@ def invert_steps(dev, argv=("--config", "3", "--resolution", str(WIDTH),
     return dict(invert_argv=list(argv), invert_seconds=seconds,
                 invert_final_loss=res["final_loss"],
                 invert_losses=res["losses"],
+                invert_final_grads=res["final_grads"],
                 invert_recovered=res["recovered"], invert_true=res["true"],
                 invert_log=log.getvalue().splitlines())
 
@@ -1852,6 +1891,78 @@ def phase_golden5(sc, cam, dev):
                   small_mean_abs_diff=float(np.abs(small - ref).mean()))
     require(ok, "golden5", json.dumps(fields))
     emit(**fields)
+    return img
+
+
+def phase_invert5spec(sc5, img5, dev):
+    """Config 5's inverse at spec (1024x1024, 64 spp, depth 6,
+    2,048-pixel batches; ``ladder_gpu.py`` runs its 120 steps) through
+    the ``invert`` CLI on golden5's image as the target. (a) Three steps
+    in one run, launch counts set to 0 just before and read just after;
+    then two steps, a checkpoint and one resumed step: params, gradients
+    and losses bit-equal. (b) Losses and gradients finite, every param
+    moved. (c) The resumed step's launches recorded, the first hit and
+    the first any launch held against their plain versions (bit-equal).
+    (d) Seconds per step. sc5 is config 5 as ``scene5`` built it (the
+    CLI builds its own). -> (hit stats, any stats, launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from ladder_gpu import step_seconds
+    from yhair_tpu_torch.apps import invert
+    from yhair_tpu_torch.io import image as img_io
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+
+    phase = "invert5spec"
+    with tempfile.TemporaryDirectory() as tmp:
+        target, ck = (os.path.join(tmp, "target.pfm"),
+                      os.path.join(tmp, "invert.ckpt"))
+        img_io.save_pfm(target, img5)
+        argv = ["--config", "5", "--resolution", str(W5), "--spp",
+                str(SPEC5_SPP), "--bounces", str(DEPTH5), "--pixel-batch",
+                str(INVERT5_BATCH), "--target", target]
+        zero_launches()
+        with step_seconds() as seconds:
+            whole = invert_steps(dev, (*argv, "--steps", "3"), phase=phase)
+        launches = read_launches(phase)
+        every = invert.CHECKPOINT_EVERY
+        invert.CHECKPOINT_EVERY = 2
+        try:
+            quiet(invert.main, [*argv, "--steps", "2", "--checkpoint", ck,
+                                "--out", os.path.join(tmp, "a.json"),
+                                "--device", str(dev)])
+        finally:
+            invert.CHECKPOINT_EVERY = every
+        with Recorder(ik) as rec:
+            resumed, _ = quiet(invert.main, [
+                *argv, "--steps", "3", "--checkpoint", ck, "--out",
+                os.path.join(tmp, "b.json"), "--device", str(dev)])
+    for key in ("recovered", "losses", "final_grads"):
+        require(resumed[key] == whole[f"invert_{key}"], phase,
+                f"the resumed run's {key} differ from the uninterrupted "
+                f"run's: {resumed[key]} against {whole[f'invert_{key}']}")
+    require(bool(np.isfinite(whole["invert_losses"]).all()), phase,
+            f"a loss is not finite: {whole['invert_losses']}")
+    require(len(rec.hit) > 0 and len(rec.any) > 0, phase,
+            f"the resumed step launched {len(rec.hit)} hit and "
+            f"{len(rec.any)} any kernels")
+    c = sc5.accel.n_clusters
+    hit_st, any_st, kinds = new_stats(1), new_stats(1), {}
+    hold_hit(hit_st, kinds, *rec.hit[0], c, phase)
+    hold_any(any_st, kinds, *rec.any[0], c, phase)
+    for st in (hit_st, any_st):
+        per_launch(st)
+    emit(phase=phase, ok=True, width=W5, height=H5, spp=SPEC5_SPP,
+         depth=DEPTH5, pixel_batch=INVERT5_BATCH,
+         launches=launches,
+         step_launches={"hit_kernel": len(rec.hit),
+                        "any_kernel": len(rec.any)},
+         resume="bit-equal params, gradients and losses",
+         kernel_vs_plain="bit-equal", step_seconds=seconds,
+         per_launch_ms=launch_ms(hit_st, any_st),
+         lists=summarize_kinds(kinds), **whole)
+    return hit_st, any_st, launches
 
 
 def phase_profile(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
@@ -2024,7 +2135,9 @@ def main(argv=None):
     launches5, img5, _ = phase_main(sc5, cam5, dev, W5, H5, DEPTH5,
                                     phase="main5")
     phase_train5(sc5, cam5, dev)
-    phase_golden5(sc5, cam5, dev)
+    img5_golden = phase_golden5(sc5, cam5, dev)
+    hit5i, any5i, launches5i = phase_invert5spec(sc5, img5_golden, dev)
+    del img5_golden
     phase_scenefile5(sc5, img5, dev)
     if args.profile:
         phase_profile(sc, cam, dev)
@@ -2049,7 +2162,10 @@ def main(argv=None):
             (" (instanced)", "config 3 posed as two instances", launches_i,
              (hit_i, any_i)),
             (" (config 4)", "config 4, scalp model (ladder)", launches4,
-             (hit4, any4))):
+             (hit4, any4)),
+            (" (config 5 inverse step)",
+             "config 5 inverse at spec, 3 invert steps", launches5i,
+             (hit5i, any5i))):
         records += [
             kernel_record("hit_kernel" + suffix,
                           "yhair_tpu/ops/intersect_kernel.py:186", stats[0],

@@ -176,26 +176,39 @@ def test_checkpoint_resumes_across_packages(tmp_path, hairball, first):
     _close(got, port(4, None))
 
 
-INVERT = ["--resolution", "16", "--spp", "1", "--bounces", "2",
-          "--pixel-batch", "128", "--lr", "2e-2"]
+INVERT = ["--resolution", "16", "--bounces", "2", "--pixel-batch", "128",
+          "--lr", "2e-2"]
 
 
-def _invert(tmp_path, *argv, name="rec"):
-    return invert.main([*INVERT, *argv, "--out",
+def _invert(tmp_path, *argv, name="rec", spp="1"):
+    return invert.main([*INVERT, "--spp", spp, *argv, "--out",
                         str(tmp_path / f"{name}.json"), "--device", "cpu"])
 
 
-def test_invert_resume_is_bit_exact(tmp_path):
+@pytest.mark.parametrize("spp,saved_by", [("1", "current"),
+                                          ("2", "current"),
+                                          ("2", "without_losses")])
+def test_invert_resume_is_bit_exact(tmp_path, spp, saved_by):
     """22 steps in one run against 20 steps, a checkpoint, and the 2
-    steps left in a second run: the same params, loss and gradients, bit
-    for bit (the pixel batches come from the restored generator)."""
+    steps left in a second run, at 1 and 2 spp on pixel batches (the
+    spec inverse's shape): the same params, losses and gradients, bit
+    for bit (the pixel batches come from the restored generator, the
+    earlier losses from the checkpoint). A checkpoint saved without its
+    losses (as before they were kept) still resumes: the losses then
+    start at the resumed step."""
     ck = str(tmp_path / "invert.ckpt")
-    whole = _invert(tmp_path, "--config", "1", "--steps", "22")
-    _invert(tmp_path, "--config", "1", "--steps", "20", "--checkpoint", ck)
+    whole = _invert(tmp_path, "--config", "1", "--steps", "22", spp=spp)
+    _invert(tmp_path, "--config", "1", "--steps", "20", "--checkpoint", ck,
+            spp=spp)
+    if saved_by == "without_losses":
+        st = torch.load(ck, weights_only=True)
+        del st["losses"]
+        torch.save(st, ck)
     resumed = _invert(tmp_path, "--config", "1", "--steps", "22",
-                      "--checkpoint", ck)
-    # "losses" holds the steps each run took
-    assert resumed.pop("losses") == whole.pop("losses")[20:]
+                      "--checkpoint", ck, spp=spp)
+    assert len(whole["losses"]) == 22
+    if saved_by == "without_losses":
+        assert resumed.pop("losses") == whole.pop("losses")[20:]
     assert resumed == whole
     assert whole["recovered"] != resumed["true"]
 

@@ -64,8 +64,9 @@ def test_train_state_roundtrip(tmp_path):
     gen_ = torch.Generator().manual_seed(5)
     torch.randperm(10, generator=gen_)
     path = tmp_path / "train.pt"
+    losses = [0.5, 0.25, 1.0 / 3.0]
     tckpt.save_train_state(path, params, opt, step=17, seed=5,
-                           generator=gen_)
+                           generator=gen_, losses=losses)
     want_draw = torch.randperm(100, generator=gen_)
 
     fresh = convert.params_from_numpy(
@@ -73,7 +74,8 @@ def test_train_state_roundtrip(tmp_path):
          "sigma_a": np.asarray([1.0, 1.0, 1.0], np.float32)}, device="cpu")
     opt2 = torch.optim.Adam(fresh.values(), lr=1e-2)
     gen2 = torch.Generator().manual_seed(0)
-    assert tckpt.load_train_state(path, fresh, opt2, gen2) == (17, 5)
+    assert tckpt.load_train_state(path, fresh, opt2, gen2) == (17, 5,
+                                                               losses)
     for k in params:
         assert torch.equal(fresh[k], params[k]) and fresh[k].requires_grad
     s1, s2 = opt.state_dict(), opt2.state_dict()

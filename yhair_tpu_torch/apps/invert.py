@@ -17,10 +17,11 @@ steps, so soft silhouettes bias no parameter. Each step draws its
 uniforms from its own seed word (``step_seed``) and, with
 --pixel-batch, its tiles from a ``torch.Generator`` seeded with --seed;
 neither is the reference's threefry stream. --checkpoint saves the
-params, the optimizer, the step and that generator every 20 steps and
-resumes from them, so a resumed run takes the steps an uninterrupted
-one would. Writes the recovered and true values, the last gradients
-and the loss of every step this run took as JSON.
+params, the optimizer, the step, that generator and the losses so far
+every 20 steps and resumes from them, so a resumed run takes the steps
+an uninterrupted one would. Writes the recovered and true values, the
+last gradients and the loss of every step as JSON (from step 0, or from
+the resumed step where the checkpoint holds no losses).
 """
 
 from __future__ import annotations
@@ -128,13 +129,14 @@ def main(argv=None):
                               pixel_batch=args.pixel_batch,
                               edge_softness=args.edge_softness, device=dev)
     gen = torch.Generator().manual_seed(args.seed)
-    start = 0
+    start, losses = 0, []
     if args.checkpoint and os.path.exists(args.checkpoint):
-        start, seed = ckpt.load_train_state(args.checkpoint, params, opt,
-                                            gen)
+        start, seed, saved = ckpt.load_train_state(args.checkpoint, params,
+                                                   opt, gen)
         if seed != args.seed:
             raise ValueError(f"{args.checkpoint} was trained with seed "
                              f"{seed}, not {args.seed}")
+        losses = list(saved or [])
         print(f"resumed at step {start}")
 
     tb = None
@@ -143,7 +145,6 @@ def main(argv=None):
         tb = SummaryWriter(args.tb_logdir)
     prof = None
     loss = grads = None
-    losses = []
     t0 = time.time()
     for it in range(start, args.steps):
         if args.profile_dir and it == start + 2:
@@ -179,7 +180,7 @@ def main(argv=None):
                   f"{json.dumps(vals)}")
         if args.checkpoint and it % CHECKPOINT_EVERY == CHECKPOINT_EVERY - 1:
             ckpt.save_train_state(args.checkpoint, params, opt, it + 1,
-                                  args.seed, gen)
+                                  args.seed, gen, losses)
     if prof is not None:
         prof.stop()
     if tb is not None:

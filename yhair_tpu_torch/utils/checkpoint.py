@@ -8,10 +8,10 @@ reference's .npz (the same keys and ``FORMAT_VERSION``): a render
 checkpointed by either package resumes in the other.
 
 A training run's state is the port's own file (``torch.save``): the
-parameter tensors, the optimizer's ``state_dict()``, the step, the seed
-and the state of the ``torch.Generator`` that draws the pixel batches,
+parameter tensors, the optimizer's ``state_dict()``, the step, the seed,
+the state of the ``torch.Generator`` that draws the pixel batches,
 which advances every step, so a resumed run draws the tiles an
-uninterrupted one would.
+uninterrupted one would, and the loss of every step taken so far.
 """
 
 from __future__ import annotations
@@ -51,22 +51,26 @@ def load_render_state(path):
         }
 
 
-def save_train_state(path, params, opt, step, seed, generator=None):
+def save_train_state(path, params, opt, step, seed, generator=None,
+                     losses=None):
     """params: {name: tensor}; opt: a ``torch.optim`` optimizer over
-    them; generator: the pixel-batch ``torch.Generator`` (or None)."""
+    them; generator: the pixel-batch ``torch.Generator`` (or None);
+    losses: the loss of each step taken (floats, or None)."""
     tmp = str(path) + ".tmp"
     torch.save({
         "version": FORMAT_VERSION, "step": int(step), "seed": int(seed),
         "params": {k: v.detach().cpu() for k, v in params.items()},
         "optimizer": opt.state_dict(),
         "generator": None if generator is None else generator.get_state(),
+        "losses": None if losses is None else [float(x) for x in losses],
     }, tmp)
     os.replace(tmp, path)
 
 
 def load_train_state(path, params, opt, generator=None):
     """Restore into the given leaves, optimizer and generator, in place.
-    -> (step, seed)."""
+    -> (step, seed, losses): losses is None for a file saved without
+    them (as before they were kept)."""
     st = torch.load(path, map_location="cpu", weights_only=True)
     _check_version(st["version"], path)
     if set(st["params"]) != set(params):
@@ -80,4 +84,4 @@ def load_train_state(path, params, opt, generator=None):
         if st["generator"] is None:
             raise ValueError(f"{path}: no pixel-batch generator state")
         generator.set_state(st["generator"])
-    return st["step"], st["seed"]
+    return st["step"], st["seed"], st.get("losses")
