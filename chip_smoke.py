@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``yhair_tpu_torch``) on one NVIDIA
 card.
 
-    python3 chip_smoke.py [--stop-after build|kernels|main] [--profile]
+    python3 chip_smoke.py [--stop-after build|kernels|main]
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
@@ -152,13 +152,6 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             apart). A four-card NCCL run is not possible on a one-card
             machine and is not made.
 
-With --profile, a last phase traces one bench strip with torch.profiler
-and prints the device time of each layer: the cluster lists (torch ops),
-the triangle search (torch ops), the two kernels, and the rest (camera,
-shading, sort, bookkeeping); then one forward+backward strip, with the
-backward's device time (the autograd engine's functions) and the
-device's idle share; then config 5's centre strip forward (``profile5``).
-
 A ``total`` line gives the script's seconds.
 The line before the last is the ``kernels`` record (each kernel on the
 config-3, the config-5, the instanced, the config-4 and the config-5
@@ -185,9 +178,6 @@ HBM_BYTES_S = 3.35e12
 # FP32 operations of one ray-segment test (csrc/intersect.cu's note)
 FLOP_PER_TEST = 55
 TESTS_PER_VISIT = 128 * 128
-# the device kernels behind each counted launch (csrc/intersect.cu)
-DEVICE_KERNELS = {"hit_kernel": ("hit_kernel", "hit_merge_kernel"),
-                  "any_kernel": ("any_kernel",)}
 
 WIDTH = HEIGHT = 512
 SPP, DEPTH, STRIP = 1, 4, 65536
@@ -601,16 +591,24 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
 
     from yhair_tpu_torch.apps import render as app
     from yhair_tpu_torch.ops import intersect_kernel as ik
+    from yhair_tpu_torch.utils import trace
 
     for k in ik.LAUNCHES:
         ik.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    img, (n_alive, n_shadow) = app.progressive_render(
-        sc, cam, width, height, SPP, depth, seed=0, return_alive=True,
-        log=None, device=dev)
-    frame_s = time.perf_counter() - t0
+    trace.reset()
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        img = app.progressive_render(sc, cam, width, height, SPP, depth,
+                                     seed=0, log=None, device=dev)
+        frame_s = time.perf_counter() - t0
+        counts = trace.counters()
+    finally:
+        trace.disable()
+    n_alive = counts["rays.bounce_live"]
+    n_shadow = counts["rays.shadow_live"]
     launches = dict(ik.LAUNCHES)
     require(img.shape == (height, width, 3) and bool(np.isfinite(img).all()),
             phase, "image not finite or of the wrong shape")
@@ -618,6 +616,8 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
             f"a kernel was not launched on the main path: {launches}")
     n_rays = width * height * SPP
     rays = n_rays * depth * (1 + shadow_rays_per_bounce(sc))
+    lanes = counts["rays.bounce_lanes"] + counts["rays.shadow_lanes"]
+    require(lanes == rays, phase, f"{lanes} lanes searched, {rays} counted")
     fields = dict(width=width, height=height, spp=SPP, depth=depth,
                   strips=-(-n_rays // STRIP), frame_s=frame_s,
                   mrays_s=rays / frame_s / 1e6,
@@ -1965,114 +1965,6 @@ def phase_invert5spec(sc5, img5, dev):
     return hit_st, any_st, launches
 
 
-def phase_profile(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
-                  strip_index=0, phase="profile", fwdbwd=True, top=12):
-    """Device time per layer over one strip (torch.profiler); with
-    fwdbwd, then the same strip forward and backward."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from yhair_tpu_torch.geometry import triangles as tri
-    from yhair_tpu_torch.ops import intersect_kernel as ik
-    from yhair_tpu_torch.parallel import mesh
-
-    pid = strip_pixels(width, height, strip_index, dev)
-
-    def strip():
-        mesh.trace_pixels(sc, cam, width, height, pid, torch.zeros_like(pid),
-                          mesh.key_seed(0), depth, device=dev)
-        torch.cuda.synchronize()
-
-    def labelled(label, fn):
-        def run(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
-        return run
-
-    # the list build and the triangle search (nearest and occlusion
-    # queries both run `_search`) are torch ops under labelled ranges; the
-    # kernels are launched through ctypes, which the profiler does not tie
-    # to a range, so they are found by their own names
-    layers = {"layer:cluster_lists": (ik, "_block_cluster_lists"),
-              "layer:triangles": (tri, "_search")}
-    orig = {label: getattr(mod, name)
-            for label, (mod, name) in layers.items()}
-    strip()
-    t0 = time.perf_counter()
-    strip()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    for label, (mod, name) in layers.items():
-        setattr(mod, name, labelled(label, orig[label]))
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            strip()
-    finally:
-        for label, (mod, name) in layers.items():
-            setattr(mod, name, orig[label])
-    avg = prof.key_averages()
-    # device kernels only: the CPU ops and the annotation ranges repeat
-    # the device time of the kernels under them
-    kernels = [e for e in avg if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not e.key.startswith("layer:")]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    by_layer = {e.key[len("layer:"):]: e.device_time_total / 1e3
-                for e in avg if e.key in layers
-                and e.device_type == DeviceType.CPU}
-    for name, parts in DEVICE_KERNELS.items():
-        by_layer[name] = sum(e.self_device_time_total for e in kernels
-                             if any(f"::{k}(" in e.key for k in parts)) / 1e3
-    by_layer["rest"] = device_ms - sum(by_layer.values())
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    emit(phase=phase, ok=device_ms > 0, strip_rays=STRIP, depth=depth,
-         strip_index=strip_index, wall_ms=wall_ms, device_ms=device_ms,
-         device_idle_frac=1.0 - device_ms / wall_ms, layer_ms=by_layer,
-         top_device_kernels=[{"name": e.key[:90], "calls": e.count,
-                              "ms": e.self_device_time_total / 1e3}
-                             for e in kernels[:top]])
-    require(device_ms > 0, phase, "the profiler saw no device time")
-    if not fwdbwd:
-        return
-
-    # one forward+backward strip: the backward is every function the
-    # autograd engine evaluates
-    scp, _ = trainable(sc)
-
-    def train_strip():
-        mesh.trace_pixels(scp, cam, width, height, pid, torch.zeros_like(pid),
-                          mesh.key_seed(0), depth, device=dev).mean().backward()
-        torch.cuda.synchronize()
-
-    train_strip()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    train_strip()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        train_strip()
-    avg = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in avg
-                    if e.device_type == DeviceType.CUDA) / 1e3
-    backward_ms = sum(e.device_time_total for e in avg
-                      if e.device_type == DeviceType.CPU and e.key.startswith(
-                          "autograd::engine::evaluate_function:")) / 1e3
-    emit(phase=f"{phase}_fwdbwd", ok=device_ms > 0, strip_rays=STRIP,
-         depth=depth, wall_ms=wall_ms, device_ms=device_ms,
-         backward_device_ms=backward_ms,
-         forward_device_ms=device_ms - backward_ms,
-         device_idle_frac=1.0 - device_ms / wall_ms,
-         peak_device_bytes=peak,
-         autograd_functions=sum(
-             e.count for e in avg if e.device_type == DeviceType.CPU
-             and e.key.startswith("autograd::engine::evaluate_function:")))
-    require(device_ms > 0 and backward_ms > 0, f"{phase}_fwdbwd",
-            "the profiler saw no backward device time")
-
-
 def kernel_record(name, replaces, st, launches, path):
     return {"name": name, "path": path, "route": "cuda",
             "source": "yhair_tpu_torch/csrc/intersect.cu",
@@ -2086,9 +1978,6 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--stop-after", choices=("build", "kernels", "main"),
                    help="end after this phase, printing no result")
-    p.add_argument("--profile", action="store_true",
-                   help="also trace one bench strip and one config-5 strip "
-                        "with torch.profiler")
     args = p.parse_args(argv)
 
     import torch
@@ -2139,10 +2028,6 @@ def main(argv=None):
     hit5i, any5i, launches5i = phase_invert5spec(sc5, img5_golden, dev)
     del img5_golden
     phase_scenefile5(sc5, img5, dev)
-    if args.profile:
-        phase_profile(sc, cam, dev)
-        phase_profile(sc5, cam5, dev, W5, H5, DEPTH5, strip5,
-                      phase="profile5", fwdbwd=False)
     del sc5, cam5, img5
 
     sc4, cam4 = phase_scene4(dev)

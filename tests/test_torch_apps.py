@@ -232,6 +232,25 @@ def test_invert_writes_tensorboard_and_profile(tmp_path):
                for e in trace["traceEvents"])
 
 
+def test_invert_profile_has_spans_and_counters(tmp_path):
+    """--profile-dir traces the profiled steps with the program's spans
+    and writes their lane counters beside the trace."""
+    prof = tmp_path / "prof"
+    _invert(tmp_path, "--config", "1", "--steps", "5", "--profile-dir",
+            str(prof))
+    with open(prof / "invert_trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert {"yhair.step", "yhair.bounce", "yhair.adam"} <= names
+    with open(prof / "counters.json") as f:
+        counts = json.load(f)
+    for kind in ("bounce", "shadow"):
+        lanes, live = (counts[f"rays.{kind}_lanes"],
+                       counts[f"rays.{kind}_live"])
+        assert lanes >= live > 0
+    # the three profiled steps: 128 pixels, 1 spp, 2 bounces each
+    assert counts["rays.bounce_lanes"] == 3 * 128 * 2
+
+
 def test_build_device_scene_backends(hairball):
     # auto: the BVH on a CPU device (the cluster search on the card), as
     # the reference picks by platform

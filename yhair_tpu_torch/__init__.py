@@ -28,7 +28,8 @@ Layer map:
   integrator/  wavefront path tracer
   parallel/    counter-hash uniforms, the tile pixel order, rendering and
                training steps over process-group ranks
-  utils/       render and training checkpoints, NaN and finite checks
+  utils/       render and training checkpoints, NaN and finite checks,
+               the spans and lane counters (trace.py, off by default)
   apps/        the render, invert, convert and view CLIs and the
                progressive renderer they share (apps/common.py)
 

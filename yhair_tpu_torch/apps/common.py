@@ -14,6 +14,7 @@ import torch
 from ..device import resolve_device
 from ..parallel import mesh
 from ..utils import checkpoint as ckpt
+from ..utils import trace
 
 # scenes of at most this many segments get no acceleration structure
 BRUTE_FORCE_SEGMENTS = 64
@@ -101,33 +102,27 @@ def pass_plan(width, height, spp_per_pass, max_rays_per_call, device):
 
 
 def render_pass(scene, cam, plan, sample0, seed_word, max_depth,
-                sampler="path", edge_softness=0.0, alive=None):
+                sampler="path", edge_softness=0.0):
     """Samples [sample0, sample0 + plan.spp_per_pass) of every pixel ->
-    (W*H, 3) float64 sum per pixel, row-major. alive: an int64 (2,)
-    tensor that the strips' (alive bounce rays, live shadow rays) are
-    added to, or None."""
-    dev = plan.pid.device
-    flat = torch.empty((plan.pid.shape[0], 3), dtype=torch.float64,
-                       device=dev)
-    for a in range(0, plan.pid.shape[0], plan.strip):
-        sl = slice(a, a + plan.strip)
-        out = mesh.trace_pixels(scene, cam, plan.width, plan.height,
-                                plan.pid[sl], sample0 + plan.sid[sl],
-                                seed_word, max_depth, sampler=sampler,
-                                edge_softness=edge_softness,
-                                return_alive=alive is not None, device=dev)
-        if alive is not None:
-            out, (a_in, a_sh) = out
-            alive += torch.stack([a_in.sum(), a_sh.sum()])
-        flat[sl] = out
-    return flat.reshape(-1, plan.spp_per_pass, 3).sum(1)[plan.inv]
+    (W*H, 3) float64 sum per pixel, row-major."""
+    with trace.span("yhair.pass"):
+        dev = plan.pid.device
+        flat = torch.empty((plan.pid.shape[0], 3), dtype=torch.float64,
+                           device=dev)
+        for a in range(0, plan.pid.shape[0], plan.strip):
+            sl = slice(a, a + plan.strip)
+            flat[sl] = mesh.trace_pixels(
+                scene, cam, plan.width, plan.height, plan.pid[sl],
+                sample0 + plan.sid[sl], seed_word, max_depth,
+                sampler=sampler, edge_softness=edge_softness, device=dev)
+        return flat.reshape(-1, plan.spp_per_pass, 3).sum(1)[plan.inv]
 
 
 @torch.no_grad()
 def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
                        sampler="path", checkpoint=None, checkpoint_every=8,
                        log=print, spp_per_pass=1, max_rays_per_call=65536,
-                       edge_softness=0.0, return_alive=False, device=None):
+                       edge_softness=0.0, device=None):
     """Render spp samples in passes of spp_per_pass, each pass in equal
     tile-aligned strips of at most max_rays_per_call rays (a pixel's
     samples of a pass are contiguous), summed in float64. No graph is
@@ -138,8 +133,7 @@ def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
     checkpoint_every passes and at the end.
 
     -> (H, W, 3) numpy image, the sum over the samples rendered divided
-    by their count; with return_alive also the totals of (alive bounce
-    rays, live shadow rays) over every strip rendered.
+    by their count.
     """
     dev = resolve_device(device)
     scene, cam = scene.to(dev), cam.to(dev)
@@ -160,8 +154,6 @@ def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
 
     plan = pass_plan(width, height, spp_per_pass, max_rays_per_call, dev)
     seed_word = mesh.key_seed(seed)
-    alive = (torch.zeros(2, dtype=torch.int64, device=dev) if return_alive
-             else None)
 
     def save(n):
         ckpt.save_render_state(
@@ -172,7 +164,7 @@ def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
     s = start
     while s < spp:
         accum += render_pass(scene, cam, plan, s, seed_word, max_depth,
-                             sampler, edge_softness, alive)
+                             sampler, edge_softness)
         s += spp_per_pass
         if checkpoint and (s // spp_per_pass) % checkpoint_every == 0:
             save(s)
@@ -182,7 +174,4 @@ def progressive_render(scene, cam, width, height, spp, max_depth, seed=0,
             log(f"  sample {s}/{spp}  ({rate:.3f} Mcam-rays/s)")
     if checkpoint:
         save(s)
-    img = (accum / max(s, 1)).reshape(height, width, 3).cpu().numpy()
-    if return_alive:
-        return img, tuple(int(x) for x in alive.cpu())
-    return img
+    return (accum / max(s, 1)).reshape(height, width, 3).cpu().numpy()

@@ -38,6 +38,7 @@ from .. import convert
 from ..io import image as img_io
 from ..parallel import mesh
 from ..utils import checkpoint as ckpt
+from ..utils import trace
 from .common import build_device_scene, load_scene, progressive_render
 
 # a checkpoint is saved after every this many steps
@@ -85,7 +86,8 @@ def build_parser():
                         "param trajectories, it/s) to this directory")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the third to fifth "
-                        "steps into this directory")
+                        "steps, with the program's spans, and their "
+                        "counters (counters.json) into this directory")
     p.add_argument("--debug-nans", action="store_true",
                    help="raise at the first NaN-producing op "
                         "(utils/debug.py)")
@@ -151,6 +153,8 @@ def main(argv=None):
             from torch.profiler import ProfilerActivity, profile
             prof = profile(activities=[ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+            trace.reset()
+            trace.enable()
             prof.start()
         loss, grads = step(params, opt, sc, cam, target,
                            step_seed(args.seed, it), generator=gen)
@@ -159,11 +163,15 @@ def main(argv=None):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             prof.stop()
+            trace.disable()
             os.makedirs(args.profile_dir, exist_ok=True)
-            trace = os.path.join(args.profile_dir, "invert_trace.json")
-            prof.export_chrome_trace(trace)
+            path = os.path.join(args.profile_dir, "invert_trace.json")
+            prof.export_chrome_trace(path)
+            with open(os.path.join(args.profile_dir, "counters.json"),
+                      "w") as f:
+                json.dump(trace.counters(), f, indent=1)
             prof = None
-            print(f"wrote profiler trace to {trace}")
+            print(f"wrote profiler trace to {path}")
         if tb is not None:
             tb.add_scalar("loss", float(loss), it)
             tb.add_scalar("it_per_s", (it - start + 1) / (time.time() - t0),
@@ -183,6 +191,7 @@ def main(argv=None):
                                   args.seed, gen, losses)
     if prof is not None:
         prof.stop()
+        trace.disable()
     if tb is not None:
         tb.close()
 

@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
+
 INF = 1e30
 # rays per chunk of the search: (8192, 2048) f32 temporaries are 64 MB
 RAY_CHUNK = 8192
@@ -113,30 +115,32 @@ def _mt_hit(o, d, v0, v1, v2, t_min, t_max):
 @torch.no_grad()
 def _search(o, d, tris: Triangles, t_min, t_max, chunk):
     """(t or INF, idx int64) of the first triangle of least t."""
-    n, total = o.shape[0], tris.n_triangles
-    t_out, i_out = [], []
-    for lo in range(0, n, RAY_CHUNK):
-        o_b = o[lo:lo + RAY_CHUNK, None, :]
-        d_b = d[lo:lo + RAY_CHUNK, None, :]
-        best_t = torch.full((o_b.shape[0],), INF, dtype=o.dtype,
-                            device=o.device)
-        best_i = torch.zeros((o_b.shape[0],), dtype=torch.int64,
-                             device=o.device)
-        for base in range(0, total, chunk):
-            sl = slice(base, base + chunk)
-            t, _, _ = _mt_hit(o_b, d_b, tris.v0[None, sl], tris.v1[None, sl],
-                              tris.v2[None, sl], t_min, t_max)
-            i_local = torch.argmin(t, -1)
-            t_local = t.gather(-1, i_local[:, None])[:, 0]
-            closer = t_local < best_t
-            best_t = torch.where(closer, t_local, best_t)
-            best_i = torch.where(closer, base + i_local, best_i)
-        t_out.append(best_t)
-        i_out.append(best_i)
-    t = torch.cat(t_out) if t_out else o.new_zeros((0,))
-    idx = torch.cat(i_out) if i_out else torch.zeros(
-        (0,), dtype=torch.int64, device=o.device)
-    return t, idx
+    with trace.span("yhair.triangles"):
+        n, total = o.shape[0], tris.n_triangles
+        t_out, i_out = [], []
+        for lo in range(0, n, RAY_CHUNK):
+            o_b = o[lo:lo + RAY_CHUNK, None, :]
+            d_b = d[lo:lo + RAY_CHUNK, None, :]
+            best_t = torch.full((o_b.shape[0],), INF, dtype=o.dtype,
+                                device=o.device)
+            best_i = torch.zeros((o_b.shape[0],), dtype=torch.int64,
+                                 device=o.device)
+            for base in range(0, total, chunk):
+                sl = slice(base, base + chunk)
+                t, _, _ = _mt_hit(o_b, d_b, tris.v0[None, sl],
+                                  tris.v1[None, sl], tris.v2[None, sl],
+                                  t_min, t_max)
+                i_local = torch.argmin(t, -1)
+                t_local = t.gather(-1, i_local[:, None])[:, 0]
+                closer = t_local < best_t
+                best_t = torch.where(closer, t_local, best_t)
+                best_i = torch.where(closer, base + i_local, best_i)
+            t_out.append(best_t)
+            i_out.append(best_i)
+        t = torch.cat(t_out) if t_out else o.new_zeros((0,))
+        idx = torch.cat(i_out) if i_out else torch.zeros(
+            (0,), dtype=torch.int64, device=o.device)
+        return t, idx
 
 
 def nearest_hit(o, d, tris: Triangles, t_min=1e-4, t_max=INF, chunk=2048):

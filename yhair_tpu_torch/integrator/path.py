@@ -53,6 +53,7 @@ from ..geometry import segments as seg
 from ..geometry import triangles as tri
 from ..ops import intersect_kernel as ik
 from ..ops.clusters import Clusters
+from ..utils import trace as tracing
 
 INF = seg.INF
 RR_START = 3
@@ -156,6 +157,11 @@ def _curve_hit(scene: Scene, o, d, chunk):
 def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
     """Closest hit over hair segments, curves, spheres, planes and
     triangles."""
+    with tracing.span("yhair.search"):
+        return _intersect(scene, o, d, chunk, perm)
+
+
+def _intersect(scene: Scene, o, d, chunk, perm) -> Hit:
     n = o.shape[0]
     t_seg, idx, hit_seg = _nearest(scene, o, d, chunk, perm)
     t_seg, idx = t_seg.detach(), idx.detach()
@@ -296,28 +302,29 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
 def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
     """Shadow rays: True where something lies before dist * (1 - 1e-4).
     Occlusion is boolean, so its inputs are detached."""
-    o, d, dist = o.detach(), d.detach(), dist.detach()
-    limit = dist * (1.0 - 1e-4)
-    if isinstance(scene.accel, Clusters):
-        occ = _permuted(ik.make_occluded_fn(scene.accel, device=o.device),
-                        perm, o, d, limit)
-    elif isinstance(scene.accel, InstancedClusters):
-        occ = _permuted(instanced.make_occluded_fn(scene.accel,
-                                                   device=o.device),
-                        perm, o, d, limit)
-    else:
-        t_seg, _, hit_seg = _nearest(scene, o, d, chunk, perm)
-        occ = hit_seg & (t_seg < limit)
-    if scene.n_curves:
-        t_c, _, _, hit_c = _curve_hit(scene, o, d, chunk)
-        occ = occ | (hit_c & (t_c < limit))
-    if scene.n_spheres:
-        occ = occ | (_sphere_t(scene, o, d).amin(-1) < limit)
-    if scene.n_planes:
-        occ = occ | (_plane_t(scene, o, d).amin(-1) < limit)
-    if scene.n_triangles:
-        occ = occ | tri.occluded(o, d, dist, scene.tris, chunk=chunk)
-    return occ
+    with tracing.span("yhair.search"):
+        o, d, dist = o.detach(), d.detach(), dist.detach()
+        limit = dist * (1.0 - 1e-4)
+        if isinstance(scene.accel, Clusters):
+            occ = _permuted(ik.make_occluded_fn(scene.accel, device=o.device),
+                            perm, o, d, limit)
+        elif isinstance(scene.accel, InstancedClusters):
+            occ = _permuted(instanced.make_occluded_fn(scene.accel,
+                                                       device=o.device),
+                            perm, o, d, limit)
+        else:
+            t_seg, _, hit_seg = _nearest(scene, o, d, chunk, perm)
+            occ = hit_seg & (t_seg < limit)
+        if scene.n_curves:
+            t_c, _, _, hit_c = _curve_hit(scene, o, d, chunk)
+            occ = occ | (hit_c & (t_c < limit))
+        if scene.n_spheres:
+            occ = occ | (_sphere_t(scene, o, d).amin(-1) < limit)
+        if scene.n_planes:
+            occ = occ | (_plane_t(scene, o, d).amin(-1) < limit)
+        if scene.n_triangles:
+            occ = occ | tri.occluded(o, d, dist, scene.tris, chunk=chunk)
+        return occ
 
 
 def _morton_spread3(x):
@@ -472,9 +479,167 @@ def trace_eyelight(scene: Scene, o, d, chunk=2048):
     return torch.where(hs.hit[:, None], f, scene.env.expand_as(f))
 
 
+def _shade(scene: Scene, hs: Hit, o, d, ub, depth, path, perm, chunk,
+           use_nee, use_env, use_area, edge_softness):
+    """One bounce after its nearest search: environment and emission
+    terms, next-event estimation with shadow rays, BSDF sampling and
+    Russian roulette. path: (L, beta, alive, prev_pdf, prev_delta) of
+    the rays o, d; ub: the bounce's uniforms. -> (path, o, d) of the
+    next bounce."""
+    L, beta, alive, prev_pdf, prev_delta = path
+    n, dev = o.shape[0], o.device
+    miss = alive & ~hs.hit
+    L = L + torch.where(miss[:, None], beta * scene.env, 0.0)
+    # camera rays and delta bounces take a MIS weight of 1
+    first = prev_delta | (depth == 0)
+    if use_env:
+        # env-map radiance on a miss, weighted against the previous
+        # bounce's env NEE
+        w = torch.ones_like(prev_pdf)
+        if use_nee:
+            w = torch.where(first, 1.0,
+                            _mis(prev_pdf, env_pdf(scene, d)))
+        L = L + torch.where(miss[:, None],
+                            beta * env_eval(scene, d) * w[:, None], 0.0)
+    alive = alive & hs.hit
+    is_hair, fx, fy, fz = _shading_frame(hs, d)
+    # soft silhouettes: pass_th lanes go on through the strand
+    pass_th = torch.zeros_like(alive)
+    if edge_softness:
+        cov = alive & is_hair
+        alpha = torch.where(cov, torch.clamp(
+            (1.0 - torch.abs(hs.h)) / edge_softness, 0.0, 1.0), 1.0)
+        a_det = alpha.detach()
+        # clamped away from 0 and 1, the branch probability bounds the
+        # weights and their derivatives (unbiased for any a_s)
+        a_s = torch.where(a_det >= 1.0, 1.0, torch.clamp(a_det, 0.2, 0.8))
+        pass_th = cov & (ub[:, 10] >= a_s)
+        beta = beta * torch.where(
+            pass_th, (1.0 - alpha) / torch.clamp(1.0 - a_s, min=1e-6),
+            alpha / torch.clamp(a_s, min=1e-6))[:, None]
+    sp = _surface_at(scene, hs)
+    # emission of surface hits (area lights BSDF rays find), weighted
+    # against the area-light NEE that could have reached the point
+    w_em = torch.ones_like(prev_pdf)
+    if use_area:
+        pdf_l = _area_light_pdf_sa(scene, torch.clamp(hs.light_id, min=0),
+                                   o, hs.position, hs.gnormal)
+        w = torch.where(first, 1.0, _mis(prev_pdf, pdf_l))
+        w_em = torch.where(hs.light_id >= 0, w, 1.0)
+    L = L + torch.where((alive & ~is_hair)[:, None],
+                        beta * sp.emission * w_em[:, None], 0.0)
+
+    wo = _to_local(-d, fx, fy, fz)
+    pos = hs.position
+    ray_eps = torch.where(is_hair, 2.0 * hs.radius, 1e-4)
+    # wi-independent hair BSDF work, shared by every wi below
+    hctx = th.hair_ctx(_hair_mat_at(scene, hs.hair_mid), hs.h, wo)
+    # next-event estimation skips the lanes that pass through
+    lit = alive & ~pass_th
+    if tracing.enabled():
+        # one shadow ray a light, the env map and the area lights
+        n_sh = ((scene.n_lights if use_nee else 0)
+                + int(use_env and use_nee) + int(use_area))
+        tracing.add("rays.shadow_lanes", n * n_sh)
+        tracing.add("rays.shadow_live", lit.sum() * n_sh)
+
+    def bsdf(wi_w):
+        """(f |cos|, detached pdf of BSDF sampling) towards wi_w."""
+        wi = _to_local(wi_w, fx, fy, fz)
+        fp_hair, pdf_hair = th.hair_f_pdf_ctx(hctx, wi)
+        cos = torch.abs(wi[:, 2:3])
+        f = torch.where(is_hair[:, None], fp_hair * cos,
+                        ts.surface_f(sp, wo, wi) * cos)
+        pdf_b = torch.where(is_hair, pdf_hair.detach(),
+                            ts.surface_pdf(sp, wo, wi).detach())
+        return f, pdf_b
+
+    # direct lighting: every point light, deterministic sum
+    for li in range(scene.n_lights if use_nee else 0):
+        to_l = scene.light_pos[li] - pos
+        dist = _norm(to_l)
+        wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
+        sh_o = pos + wi_w * ray_eps[:, None]
+        vis = ~occluded_scene(scene, sh_o, wi_w, dist - ray_eps,
+                              chunk=chunk, perm=perm)
+        wi = _to_local(wi_w, fx, fy, fz)
+        f_hair = th.hair_f_ctx(hctx, wi) * torch.abs(wi[:, 2:3])
+        f_surf = ts.surface_f(sp, wo, wi) * torch.abs(wi[:, 2:3])
+        f = torch.where(is_hair[:, None], f_hair, f_surf)
+        contrib = beta * f * scene.light_intensity[li] / torch.clamp(
+            dist[:, None] ** 2, min=1e-12)
+        L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
+
+    # environment-map NEE, weighted against BSDF sampling
+    if use_env and use_nee:
+        wi_w, pdf_e = env_sample(scene, ub[:, 6], ub[:, 7])
+        le = env_eval(scene, wi_w)
+        sh_o = pos + wi_w * ray_eps[:, None]
+        vis = ~occluded_scene(scene, sh_o, wi_w,
+                              torch.full((n,), INF, device=dev),
+                              chunk=chunk, perm=perm)
+        f, pdf_b = bsdf(wi_w)
+        contrib = beta * f * le * (
+            _mis(pdf_e, pdf_b) / torch.clamp(pdf_e, min=1e-12))[:, None]
+        L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
+
+    # area-light NEE (emissive spheres, mesh triangles)
+    if use_area:
+        el = torch.clamp(
+            torch.searchsorted(scene.al_cdf, ub[:, 5].contiguous()),
+            max=scene.n_area_lights - 1)
+        lpos, lnrm, luv = _area_light_point(scene, el, ub[:, 8],
+                                            ub[:, 9])
+        lpos = lpos.detach()
+        to_l = lpos - pos
+        dist = _norm(to_l)
+        wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
+        pdf_a = _area_light_pdf_sa(scene, el, pos, lpos, lnrm).detach()
+        sh_o = pos + wi_w * ray_eps[:, None]
+        vis = ~occluded_scene(scene, sh_o, wi_w, dist - 2.0 * ray_eps,
+                              chunk=chunk, perm=perm)
+        f, pdf_b = bsdf(wi_w)
+        le = scene.al_emission[el]
+        if scene.tex_meta.shape[0]:
+            # NEE integrates the same textured emission BSDF hits see
+            le = le * sample_bilinear(scene.tex_data, scene.tex_meta,
+                                      scene.al_tex[el], luv[:, 0],
+                                      luv[:, 1])
+        ok = lit & vis & (pdf_a > 1e-12) & (dist > 4.0 * ray_eps)
+        contrib = beta * f * le * (
+            _mis(pdf_a, pdf_b) / torch.clamp(pdf_a, min=1e-12))[:, None]
+        L = L + torch.where(ok[:, None], contrib, 0.0)
+
+    # BSDF sampling: the direction and its pdf are detached, f
+    # carries the gradient
+    wi_h = th.hair_sample_wi(hctx, ub[:, :4]).detach()
+    f_h, pdf_h = th.hair_f_pdf_ctx(hctx, wi_h)
+    pdf_h = pdf_h.detach()
+    w_hair = f_h * torch.abs(wi_h[:, 2:3]) / torch.clamp(
+        pdf_h[:, None], min=1e-12)
+    w_hair = torch.where((pdf_h > 1e-12)[:, None], w_hair, 0.0)
+    wi_s, w_surf, pdf_s, delta_s = ts.surface_sample(sp, wo, ub[:, :3])
+    wi = torch.where(is_hair[:, None], wi_h, wi_s)
+    # pass-through lanes keep their ray and MIS state; weight 1
+    beta = beta * torch.where(pass_th[:, None], 1.0, torch.where(
+        is_hair[:, None], w_hair, w_surf))
+    prev_pdf = torch.where(pass_th, prev_pdf,
+                           torch.where(is_hair, pdf_h, pdf_s))
+    prev_delta = torch.where(pass_th, prev_delta, ~is_hair & delta_s)
+    d = torch.where(pass_th[:, None], d,
+                    safe_normalize(_to_world(wi, fx, fy, fz)))
+    o = pos + d * ray_eps[:, None]
+    alive = alive & (torch.abs(beta).amax(-1) > 0)
+    if depth >= RR_START:   # Russian roulette
+        p_cont = torch.clamp(beta.detach().amax(-1), 0.05, 1.0)
+        alive = alive & ~(ub[:, 4] > p_cont)
+        beta = beta / p_cont[:, None]
+    return (L, beta, alive, prev_pdf, prev_delta), o, d
+
+
 def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
           sampler="path", sort_rays=None, edge_softness=0.0,
-          return_alive=False, device=None):
+          device=None):
     """Path-trace a ray batch.
 
     o, d: (N, 3); uniforms: (N, n_uniform_dims(max_depth)). -> L (N, 3).
@@ -493,8 +658,10 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
     (1 - alpha) / (1 - a_s), so the value matches the oracle sample for
     sample and d alpha carries the silhouette's motion. 0 keeps exact
     hard edges.
-    return_alive: also return per-depth (alive bounce rays, live shadow
-    rays) counts, each a (max_depth,) int64 tensor.
+    With tracing on (``utils.trace``), each bounce adds its lanes and
+    live lanes, for its nearest search (``rays.bounce_lanes``,
+    ``rays.bounce_live``) and its shadow searches
+    (``rays.shadow_lanes``, ``rays.shadow_live``).
     """
     if sampler not in ("path", "naive", "eyelight"):
         raise ValueError(f"unknown sampler {sampler!r}")
@@ -503,186 +670,46 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
     o, d, uniforms = o.to(dev), d.to(dev), uniforms.to(dev)
     n = o.shape[0]
     if sampler == "eyelight":
-        L = trace_eyelight(scene, o, d, chunk=chunk)
-        if return_alive:
-            return L, (torch.full((1,), n, device=dev),
-                       torch.zeros(1, dtype=torch.int64, device=dev))
-        return L
+        if tracing.enabled():
+            tracing.add("rays.bounce_lanes", n)
+            tracing.add("rays.bounce_live", n)
+        return trace_eyelight(scene, o, d, chunk=chunk)
     use_nee = sampler == "path"
     use_env = has_env(scene)
     use_area = use_nee and scene.n_area_lights > 0
-    # shadow rays of each live bounce ray
-    n_sh = ((scene.n_lights if use_nee else 0) + int(use_env and use_nee)
-            + int(use_area))
     if sort_rays is None:
         sort_rays = (max_depth > 1 and n >= 4096
                      and scene.segments.p0.shape[0] >= 4096)
     if sort_rays:
         sort_lo, sort_inv = _sort_bounds(scene)
 
-    L = torch.zeros_like(o)
-    beta = torch.ones_like(o)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    # the previous bounce's BSDF-sample pdf and delta flag (MIS state)
-    prev_pdf = o.new_zeros((n,))
-    prev_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # radiance, throughput, alive, and the previous bounce's BSDF-sample
+    # pdf and delta flag (MIS state)
+    path = (torch.zeros_like(o), torch.ones_like(o),
+            torch.ones((n,), dtype=torch.bool, device=dev), o.new_zeros((n,)),
+            torch.zeros((n,), dtype=torch.bool, device=dev))
     perm = None
-    n_alive, n_shadow = [], []
     for depth in range(max_depth):
-        ub = uniforms[:, D_PIXEL + D_BOUNCE * depth:
-                      D_PIXEL + D_BOUNCE * (depth + 1)]
-        n_alive.append(alive.sum())
-        # dead lanes become far-away rays: their sorted blocks list no
-        # clusters, so the kernels skip them
-        o_int = torch.where(alive[:, None], o, 1e8)
-        hs = intersect_scene(scene, o_int, d, chunk=chunk, perm=perm)
-        miss = alive & ~hs.hit
-        L = L + torch.where(miss[:, None], beta * scene.env, 0.0)
-        # camera rays and delta bounces take a MIS weight of 1
-        first = prev_delta | (depth == 0)
-        if use_env:
-            # env-map radiance on a miss, weighted against the previous
-            # bounce's env NEE
-            w = torch.ones_like(prev_pdf)
-            if use_nee:
-                w = torch.where(first, 1.0,
-                                _mis(prev_pdf, env_pdf(scene, d)))
-            L = L + torch.where(miss[:, None],
-                                beta * env_eval(scene, d) * w[:, None], 0.0)
-        alive = alive & hs.hit
-        n_shadow.append(alive.sum() * n_sh)
-        is_hair, fx, fy, fz = _shading_frame(hs, d)
-        # soft silhouettes: pass_th lanes go on through the strand
-        pass_th = torch.zeros_like(alive)
-        if edge_softness:
-            cov = alive & is_hair
-            alpha = torch.where(cov, torch.clamp(
-                (1.0 - torch.abs(hs.h)) / edge_softness, 0.0, 1.0), 1.0)
-            a_det = alpha.detach()
-            # clamped away from 0 and 1, the branch probability bounds the
-            # weights and their derivatives (unbiased for any a_s)
-            a_s = torch.where(a_det >= 1.0, 1.0, torch.clamp(a_det, 0.2, 0.8))
-            pass_th = cov & (ub[:, 10] >= a_s)
-            beta = beta * torch.where(
-                pass_th, (1.0 - alpha) / torch.clamp(1.0 - a_s, min=1e-6),
-                alpha / torch.clamp(a_s, min=1e-6))[:, None]
-        sp = _surface_at(scene, hs)
-        # emission of surface hits (area lights BSDF rays find), weighted
-        # against the area-light NEE that could have reached the point
-        w_em = torch.ones_like(prev_pdf)
-        if use_area:
-            pdf_l = _area_light_pdf_sa(scene, torch.clamp(hs.light_id, min=0),
-                                       o, hs.position, hs.gnormal)
-            w = torch.where(first, 1.0, _mis(prev_pdf, pdf_l))
-            w_em = torch.where(hs.light_id >= 0, w, 1.0)
-        L = L + torch.where((alive & ~is_hair)[:, None],
-                            beta * sp.emission * w_em[:, None], 0.0)
-
-        wo = _to_local(-d, fx, fy, fz)
-        pos = hs.position
-        ray_eps = torch.where(is_hair, 2.0 * hs.radius, 1e-4)
-        # wi-independent hair BSDF work, shared by every wi below
-        hctx = th.hair_ctx(_hair_mat_at(scene, hs.hair_mid), hs.h, wo)
-        # next-event estimation skips the lanes that pass through
-        lit = alive & ~pass_th
-
-        def bsdf(wi_w):
-            """(f |cos|, detached pdf of BSDF sampling) towards wi_w."""
-            wi = _to_local(wi_w, fx, fy, fz)
-            fp_hair, pdf_hair = th.hair_f_pdf_ctx(hctx, wi)
-            cos = torch.abs(wi[:, 2:3])
-            f = torch.where(is_hair[:, None], fp_hair * cos,
-                            ts.surface_f(sp, wo, wi) * cos)
-            pdf_b = torch.where(is_hair, pdf_hair.detach(),
-                                ts.surface_pdf(sp, wo, wi).detach())
-            return f, pdf_b
-
-        # direct lighting: every point light, deterministic sum
-        for li in range(scene.n_lights if use_nee else 0):
-            to_l = scene.light_pos[li] - pos
-            dist = _norm(to_l)
-            wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
-            sh_o = pos + wi_w * ray_eps[:, None]
-            vis = ~occluded_scene(scene, sh_o, wi_w, dist - ray_eps,
-                                  chunk=chunk, perm=perm)
-            wi = _to_local(wi_w, fx, fy, fz)
-            f_hair = th.hair_f_ctx(hctx, wi) * torch.abs(wi[:, 2:3])
-            f_surf = ts.surface_f(sp, wo, wi) * torch.abs(wi[:, 2:3])
-            f = torch.where(is_hair[:, None], f_hair, f_surf)
-            contrib = beta * f * scene.light_intensity[li] / torch.clamp(
-                dist[:, None] ** 2, min=1e-12)
-            L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
-
-        # environment-map NEE, weighted against BSDF sampling
-        if use_env and use_nee:
-            wi_w, pdf_e = env_sample(scene, ub[:, 6], ub[:, 7])
-            le = env_eval(scene, wi_w)
-            sh_o = pos + wi_w * ray_eps[:, None]
-            vis = ~occluded_scene(scene, sh_o, wi_w,
-                                  torch.full((n,), INF, device=dev),
-                                  chunk=chunk, perm=perm)
-            f, pdf_b = bsdf(wi_w)
-            contrib = beta * f * le * (
-                _mis(pdf_e, pdf_b) / torch.clamp(pdf_e, min=1e-12))[:, None]
-            L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
-
-        # area-light NEE (emissive spheres, mesh triangles)
-        if use_area:
-            el = torch.clamp(
-                torch.searchsorted(scene.al_cdf, ub[:, 5].contiguous()),
-                max=scene.n_area_lights - 1)
-            lpos, lnrm, luv = _area_light_point(scene, el, ub[:, 8],
-                                                ub[:, 9])
-            lpos = lpos.detach()
-            to_l = lpos - pos
-            dist = _norm(to_l)
-            wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
-            pdf_a = _area_light_pdf_sa(scene, el, pos, lpos, lnrm).detach()
-            sh_o = pos + wi_w * ray_eps[:, None]
-            vis = ~occluded_scene(scene, sh_o, wi_w, dist - 2.0 * ray_eps,
-                                  chunk=chunk, perm=perm)
-            f, pdf_b = bsdf(wi_w)
-            le = scene.al_emission[el]
-            if scene.tex_meta.shape[0]:
-                # NEE integrates the same textured emission BSDF hits see
-                le = le * sample_bilinear(scene.tex_data, scene.tex_meta,
-                                          scene.al_tex[el], luv[:, 0],
-                                          luv[:, 1])
-            ok = lit & vis & (pdf_a > 1e-12) & (dist > 4.0 * ray_eps)
-            contrib = beta * f * le * (
-                _mis(pdf_a, pdf_b) / torch.clamp(pdf_a, min=1e-12))[:, None]
-            L = L + torch.where(ok[:, None], contrib, 0.0)
-
-        # BSDF sampling: the direction and its pdf are detached, f
-        # carries the gradient
-        wi_h = th.hair_sample_wi(hctx, ub[:, :4]).detach()
-        f_h, pdf_h = th.hair_f_pdf_ctx(hctx, wi_h)
-        pdf_h = pdf_h.detach()
-        w_hair = f_h * torch.abs(wi_h[:, 2:3]) / torch.clamp(
-            pdf_h[:, None], min=1e-12)
-        w_hair = torch.where((pdf_h > 1e-12)[:, None], w_hair, 0.0)
-        wi_s, w_surf, pdf_s, delta_s = ts.surface_sample(sp, wo, ub[:, :3])
-        wi = torch.where(is_hair[:, None], wi_h, wi_s)
-        # pass-through lanes keep their ray and MIS state; weight 1
-        beta = beta * torch.where(pass_th[:, None], 1.0, torch.where(
-            is_hair[:, None], w_hair, w_surf))
-        prev_pdf = torch.where(pass_th, prev_pdf,
-                               torch.where(is_hair, pdf_h, pdf_s))
-        prev_delta = torch.where(pass_th, prev_delta, ~is_hair & delta_s)
-        d = torch.where(pass_th[:, None], d,
-                        safe_normalize(_to_world(wi, fx, fy, fz)))
-        o = pos + d * ray_eps[:, None]
-        alive = alive & (torch.abs(beta).amax(-1) > 0)
-        if depth >= RR_START:   # Russian roulette
-            p_cont = torch.clamp(beta.detach().amax(-1), 0.05, 1.0)
-            alive = alive & ~(ub[:, 4] > p_cont)
-            beta = beta / p_cont[:, None]
-        if sort_rays and depth + 1 < max_depth:
-            perm = _ray_sort_perm(o.detach(), d.detach(), alive, sort_lo,
-                                  sort_inv)
-    if return_alive:
-        return L, (torch.stack(n_alive), torch.stack(n_shadow))
-    return L
+        with tracing.span("yhair.bounce"):
+            ub = uniforms[:, D_PIXEL + D_BOUNCE * depth:
+                          D_PIXEL + D_BOUNCE * (depth + 1)]
+            alive = path[2]
+            if tracing.enabled():
+                tracing.add("rays.bounce_lanes", n)
+                tracing.add("rays.bounce_live", alive.sum())
+            # dead lanes become far-away rays: their sorted blocks list no
+            # clusters, so the kernels skip them
+            o_int = torch.where(alive[:, None], o, 1e8)
+            hs = intersect_scene(scene, o_int, d, chunk=chunk, perm=perm)
+            with tracing.span("yhair.shading"):
+                path, o, d = _shade(scene, hs, o, d, ub, depth, path, perm,
+                                    chunk, use_nee, use_env, use_area,
+                                    edge_softness)
+            if sort_rays and depth + 1 < max_depth:
+                with tracing.span("yhair.sort"):
+                    perm = _ray_sort_perm(o.detach(), d.detach(), path[2],
+                                          sort_lo, sort_inv)
+    return path[0]
 
 
 def render(scene: Scene, cam: Camera, uniforms, max_depth=4, chunk=2048,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..utils import trace
 from .clusters import Clusters
 
 INF = 1e30
@@ -67,37 +68,40 @@ def _block_cluster_lists(o, d, cl: Clusters, t_max=None, exclude_below=None,
     -> (ids (nb, C) int32, counts (nb,) int32[, key (nb, C)]); key is the
     sort key: the block's entry distance, +INF for clusters it misses.
     """
-    n, c = o.shape[0], cl.n_clusters
-    small = torch.where(d < 0, -1e-12, 1e-12).to(d.dtype)
-    inv = 1.0 / torch.where(torch.abs(d) < 1e-12, small, d)
-    block_hit, tn_block = [], []
-    for lo in range(0, n, RAY_CHUNK):
-        oc, invc = o[lo:lo + RAY_CHUNK], inv[lo:lo + RAY_CHUNK]
-        m = oc.shape[0]
-        tn = torch.full((m, c), T_MIN, dtype=o.dtype, device=o.device)
-        tf = torch.full((m, c), INF, dtype=o.dtype, device=o.device)
-        for ax in range(3):
-            t0 = (cl.cmin[None, :, ax] - oc[:, ax, None]) * invc[:, ax, None]
-            t1 = (cl.cmax[None, :, ax] - oc[:, ax, None]) * invc[:, ax, None]
-            tn = torch.maximum(tn, torch.minimum(t0, t1))
-            tf = torch.minimum(tf, torch.maximum(t0, t1))
-        hit = tn <= tf
-        if t_max is not None:
-            hit = hit & (tn <= t_max[lo:lo + RAY_CHUNK, None])
-        block_hit.append(hit.view(-1, BLOCK, c).any(1))
-        tn_block.append(torch.where(hit, tn, INF).view(-1, BLOCK, c)
-                        .amin(1))
-    block_hit = torch.cat(block_hit)
-    tn_block = torch.cat(tn_block)
-    if exclude_below is not None:
-        block_hit = block_hit & ~(tn_block < exclude_below[:, None])
-    counts = block_hit.sum(1).to(torch.int32)
-    key = torch.where(block_hit, tn_block, INF)
-    # stable, as jnp.argsort: ties keep cluster order
-    order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
-    if return_key:
-        return order, counts, key
-    return order, counts
+    with trace.span("yhair.lists"):
+        n, c = o.shape[0], cl.n_clusters
+        small = torch.where(d < 0, -1e-12, 1e-12).to(d.dtype)
+        inv = 1.0 / torch.where(torch.abs(d) < 1e-12, small, d)
+        block_hit, tn_block = [], []
+        for lo in range(0, n, RAY_CHUNK):
+            oc, invc = o[lo:lo + RAY_CHUNK], inv[lo:lo + RAY_CHUNK]
+            m = oc.shape[0]
+            tn = torch.full((m, c), T_MIN, dtype=o.dtype, device=o.device)
+            tf = torch.full((m, c), INF, dtype=o.dtype, device=o.device)
+            for ax in range(3):
+                t0 = ((cl.cmin[None, :, ax] - oc[:, ax, None])
+                      * invc[:, ax, None])
+                t1 = ((cl.cmax[None, :, ax] - oc[:, ax, None])
+                      * invc[:, ax, None])
+                tn = torch.maximum(tn, torch.minimum(t0, t1))
+                tf = torch.minimum(tf, torch.maximum(t0, t1))
+            hit = tn <= tf
+            if t_max is not None:
+                hit = hit & (tn <= t_max[lo:lo + RAY_CHUNK, None])
+            block_hit.append(hit.view(-1, BLOCK, c).any(1))
+            tn_block.append(torch.where(hit, tn, INF).view(-1, BLOCK, c)
+                            .amin(1))
+        block_hit = torch.cat(block_hit)
+        tn_block = torch.cat(tn_block)
+        if exclude_below is not None:
+            block_hit = block_hit & ~(tn_block < exclude_below[:, None])
+        counts = block_hit.sum(1).to(torch.int32)
+        key = torch.where(block_hit, tn_block, INF)
+        # stable, as jnp.argsort: ties keep cluster order
+        order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
+        if return_key:
+            return order, counts, key
+        return order, counts
 
 
 def _visited_threshold(key, ids, counts, n_visited):

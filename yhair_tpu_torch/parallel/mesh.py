@@ -27,7 +27,7 @@ import torch.distributed as dist
 
 from ..core.rng import n_uniform_dims
 from ..device import resolve_device
-from ..utils import debug
+from ..utils import debug, trace
 
 TILE_W, TILE_H = 16, 8
 _M32 = 0xFFFFFFFF
@@ -100,7 +100,7 @@ def ray_uniforms(seed_word: int, pixel_ids, sample_ids, max_depth,
 
 def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
                  seed_word, max_depth, chunk=2048, sampler="path",
-                 edge_softness=0.0, return_alive=False, device=None):
+                 edge_softness=0.0, device=None):
     """Trace one flat batch of (pixel, sample) rays -> (B, 3) radiance
     (the reference's ``_trace_pixels``)."""
     from ..core.camera import camera_rays
@@ -108,13 +108,14 @@ def trace_pixels(scene, cam, width, height, pixel_ids, sample_ids,
 
     dev = resolve_device(device)
     pixel_ids, sample_ids = pixel_ids.to(dev), sample_ids.to(dev)
-    u = ray_uniforms(seed_word, pixel_ids, sample_ids, max_depth)
-    i = (pixel_ids % width).to(u.dtype)
-    j = (pixel_ids // width).to(u.dtype)
-    o, d = camera_rays(cam.to(dev), width, height, i, j, u[:, :4])
+    with trace.span("yhair.rays"):
+        u = ray_uniforms(seed_word, pixel_ids, sample_ids, max_depth)
+        i = (pixel_ids % width).to(u.dtype)
+        j = (pixel_ids // width).to(u.dtype)
+        o, d = camera_rays(cam.to(dev), width, height, i, j, u[:, :4])
     return path.trace(scene, o, d, u, max_depth=max_depth, chunk=chunk,
                       sampler=sampler, edge_softness=edge_softness,
-                      return_alive=return_alive, device=dev)
+                      device=dev)
 
 
 def make_group(ranks=None, device=None):
@@ -275,50 +276,53 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
     all_pixels = torch.as_tensor(perm, device=dev)
 
     def step(params, opt, scene, cam, target, seed_word, generator=None):
-        if pixel_batch is None:
-            pixels = all_pixels
-        else:
-            if generator is None:
-                raise ValueError("pixel_batch draws its tiles from a "
-                                 "generator: pass one")
-            tiles = draw_tiles(all_pixels.numel() // tile_px,
-                               pixel_batch // tile_px, generator)
-            pixels = all_pixels.reshape(-1, tile_px)[tiles.to(dev)]
-            pixels = pixels.reshape(-1)
-        sc = scene._replace(hair=scene.hair._replace(**params))
-        tgt = target.to(dev).reshape(-1, 3)
-        n = pixels.numel() * 3
-        for p in params.values():
-            p.grad = None
-        loss = torch.zeros((), device=dev)
-        mine = pixels[_share(pixels.numel(), group)]
-        for sl in pixel_strips(mine.numel(), spp):
-            img = pixel_means(sc, cam, width, height, mine[sl], spp,
-                              seed_word, max_depth, chunk, edge_softness,
-                              dev)
-            part = ((img - tgt[mine[sl]]) ** 2).sum() / n
-            part.backward()
-            loss = loss + part.detach()
-        for p in params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if group is not None:
-            loss = _all_reduce_sum(group, loss,
-                                   *(p.grad for p in params.values()))
-        debug.assert_finite(loss, "train_step loss")
-        debug.assert_finite([p.grad for p in params.values()],
-                            "train_step grads")
-        grads = {}
-        for k, p in params.items():
-            # one degenerate sample must not poison Adam's moments
-            g = torch.where(torch.isfinite(p.grad), p.grad, 0.0)
-            p.grad = g
-            grads[k] = g.clone()
-        opt.step()
-        with torch.no_grad():
-            for k, p in params.items():
-                if k in PARAM_BOUNDS:
-                    p.clamp_(*PARAM_BOUNDS[k])
-        return loss, grads
+        with trace.span("yhair.step"):
+            if pixel_batch is None:
+                pixels = all_pixels
+            else:
+                if generator is None:
+                    raise ValueError("pixel_batch draws its tiles from a "
+                                     "generator: pass one")
+                tiles = draw_tiles(all_pixels.numel() // tile_px,
+                                   pixel_batch // tile_px, generator)
+                pixels = all_pixels.reshape(-1, tile_px)[tiles.to(dev)]
+                pixels = pixels.reshape(-1)
+            sc = scene._replace(hair=scene.hair._replace(**params))
+            tgt = target.to(dev).reshape(-1, 3)
+            n = pixels.numel() * 3
+            for p in params.values():
+                p.grad = None
+            loss = torch.zeros((), device=dev)
+            mine = pixels[_share(pixels.numel(), group)]
+            for sl in pixel_strips(mine.numel(), spp):
+                img = pixel_means(sc, cam, width, height, mine[sl], spp,
+                                  seed_word, max_depth, chunk, edge_softness,
+                                  dev)
+                part = ((img - tgt[mine[sl]]) ** 2).sum() / n
+                with trace.span("yhair.backward"):
+                    part.backward()
+                loss = loss + part.detach()
+            for p in params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            with trace.span("yhair.adam"):
+                if group is not None:
+                    loss = _all_reduce_sum(group, loss,
+                                           *(p.grad for p in params.values()))
+                debug.assert_finite(loss, "train_step loss")
+                debug.assert_finite([p.grad for p in params.values()],
+                                    "train_step grads")
+                grads = {}
+                for k, p in params.items():
+                    # one degenerate sample must not poison Adam's moments
+                    g = torch.where(torch.isfinite(p.grad), p.grad, 0.0)
+                    p.grad = g
+                    grads[k] = g.clone()
+                opt.step()
+                with torch.no_grad():
+                    for k, p in params.items():
+                        if k in PARAM_BOUNDS:
+                            p.clamp_(*PARAM_BOUNDS[k])
+            return loss, grads
 
     return step
