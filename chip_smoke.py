@@ -14,7 +14,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 2. kernels  one 65,536-ray strip of the bench workload (the 10k-strand
             hairball, 512x512, depth 4) is traced with every kernel
             launch recorded: the camera rays and every bounce's rays.
-            Each recorded launch is held against its plain PyTorch
+            Each recorded launch (every list build of ``lists_kernel``,
+            every hit and any launch) is held against its plain PyTorch
             version (bit-equal), every nearest-hit search against the
             brute force on 1 ray in 16 (bit-equal winners), and every
             hit's t against the closed-form recompute (bit-equal).
@@ -175,9 +176,11 @@ GOLDEN = os.path.join(ROOT, "goldens")
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 FP32_PEAK = 67e12
 HBM_BYTES_S = 3.35e12
-# FP32 operations of one ray-segment test (csrc/intersect.cu's note)
+# FP32 operations of one ray-segment test and of one (ray, cluster) slab
+# test (csrc/intersect.cu's note)
 FLOP_PER_TEST = 55
 TESTS_PER_VISIT = 128 * 128
+FLOP_PER_SLAB = 28
 
 WIDTH = HEIGHT = 512
 SPP, DEPTH, STRIP = 1, 4, 65536
@@ -259,13 +262,21 @@ class Recorder:
 
     def __init__(self, ik):
         self.ik = ik
-        self.hit, self.any, self.nearest = [], [], []
+        self.hit, self.any, self.nearest, self.lists = [], [], [], []
 
     def __enter__(self):
         import torch
         ik = self.ik
-        self.orig = (ik.hit_pass, ik.any_pass, ik.nearest_hit)
-        hit_pass, any_pass, nearest_hit = self.orig
+        self.orig = (ik.hit_pass, ik.any_pass, ik.nearest_hit,
+                     ik._block_cluster_lists)
+        hit_pass, any_pass, nearest_hit, lists = self.orig
+
+        def rec_lists(o, d, cl, t_max=None, exclude_below=None,
+                      return_key=False):
+            args = (o, d, cl, t_max, exclude_below, return_key)
+            out = lists(*args)
+            self.lists.append((args, out))
+            return out
 
         def rec_hit(o, d, seeds, ids, counts, tc, k_cap):
             out = hit_pass(o, d, seeds, ids, counts, tc, k_cap)
@@ -286,12 +297,15 @@ class Recorder:
             self.nearest.append((o, d, out))
             return out
 
-        ik.hit_pass, ik.any_pass, ik.nearest_hit = (rec_hit, rec_any,
-                                                    rec_nearest)
+        (ik.hit_pass, ik.any_pass, ik.nearest_hit,
+         ik._block_cluster_lists) = (rec_hit, rec_any, rec_nearest,
+                                     rec_lists)
         return self
 
     def __exit__(self, *exc):
-        self.ik.hit_pass, self.ik.any_pass, self.ik.nearest_hit = self.orig
+        ik = self.ik
+        (ik.hit_pass, ik.any_pass, ik.nearest_hit,
+         ik._block_cluster_lists) = self.orig
 
 
 def timed(fn, reps=1):
@@ -488,6 +502,34 @@ def hold_any(st, kinds, args, out, visits, c, phase):
     st["plain_ms"] += ms_plain
 
 
+def hold_lists(st, args, out, phase):
+    """One recorded list build against _block_cluster_lists_plain
+    (bit-equal ids, counts and, where it was asked for, key), then timed
+    (CUDA events x5). The bound: live rays (t_max >= T_MIN) x C slab tests
+    of FLOP_PER_SLAB operations over the FP32 peak, against the inputs
+    read once and the outputs written once over HBM's rate."""
+    import torch
+
+    from yhair_tpu_torch.ops import intersect_kernel as ik
+
+    o, d, cl, t_max, exclude, _ = args
+    plain, ms_plain = timed(lambda: ik._block_cluster_lists_plain(
+        o, d, cl, t_max, exclude, return_key=True))
+    for name, a, b in zip(("ids", "counts", "key"), out, plain):
+        require(torch.equal(a, b), phase,
+                f"lists kernel {name} differs from the plain twin "
+                f"({int((a != b).sum())} entries)")
+    _, ms = timed(lambda: ik._block_cluster_lists(*args), 5)
+    live = (o.shape[0] if t_max is None
+            else int((t_max >= ik.T_MIN).sum()))
+    add_bound(st, live * cl.n_clusters * FLOP_PER_SLAB / FP32_PEAK * 1e3,
+              nbytes(o, d, cl.cmin, cl.cmax,
+                     *(x for x in (t_max, exclude) if x is not None), *out)
+              / HBM_BYTES_S * 1e3)
+    st["ms"] += ms
+    st["plain_ms"] += ms_plain
+
+
 def per_launch(st):
     """Turn st's sums into means per compared launch; name the bound."""
     n = max(st["launches"], 1)
@@ -497,10 +539,11 @@ def per_launch(st):
                       else "bytes")
 
 
-def launch_ms(hit_stats, any_stats):
+def launch_ms(hit_stats, any_stats, lists_stats):
     return {k: {f: st[f] for f in ("ms", "plain_ms", "bound_ms", "ops_ms",
                                    "bytes_ms")}
-            for k, st in (("hit", hit_stats), ("any", any_stats))}
+            for k, st in (("lists", lists_stats), ("hit", hit_stats),
+                          ("any", any_stats))}
 
 
 def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
@@ -527,6 +570,9 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     require(bool(torch.isfinite(img).all()), phase, "strip not finite")
     kinds = {}
 
+    lists_stats = new_stats(len(rec.lists))
+    for args, out in rec.lists:
+        hold_lists(lists_stats, args, out, phase)
     hit_stats = new_stats(len(rec.hit))
     for args, out in rec.hit:
         hold_hit(hit_stats, kinds, args, out, c, phase)
@@ -558,10 +604,11 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
                 f"{int((s_re != t[hit]).sum())} of {int(hit.sum())} hits")
         n_hits += int(hit.sum())
 
-    for st in (hit_stats, any_stats):
+    for st in (lists_stats, hit_stats, any_stats):
         per_launch(st)
     emit(phase=phase, ok=True, strip_rays=STRIP, depth=depth,
-         strip_index=strip, hit_launches=hit_stats["launches"],
+         strip_index=strip, lists_launches=lists_stats["launches"],
+         hit_launches=hit_stats["launches"],
          any_launches=any_stats["launches"], nearest_searches=len(
              rec.nearest), brute_force_rays=n_brute, recomputed_hits=n_hits,
          kernel_vs_plain="bit-equal", brute_force="bit-equal winners",
@@ -569,9 +616,9 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
          k_cap=ik._k_cap(c),
          sentinel_blocks=sum(v["sentinel_blocks"] for v in kinds.values()),
          sentinel_check=sentinel,
-         per_launch_ms=launch_ms(hit_stats, any_stats),
+         per_launch_ms=launch_ms(hit_stats, any_stats, lists_stats),
          lists=summarize_kinds(kinds))
-    return hit_stats, any_stats
+    return hit_stats, any_stats, lists_stats
 
 
 def shadow_rays_per_bounce(sc):
@@ -1533,7 +1580,8 @@ def phase_inst3(sc, cam, dev):
     kernels on the centre strip (every launch bit-equal to its plain
     version, in each instance's frame), the forward frame against the
     baked scene's, and one forward+backward frame into the two-row
-    table. -> (hit stats, any stats, launches of the instanced frame)."""
+    table. -> (hit stats, any stats, lists stats, launches of the
+    instanced frame)."""
     import numpy as np
     import torch
 
@@ -1542,9 +1590,9 @@ def phase_inst3(sc, cam, dev):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     ic = sc_inst.accel
-    hit_i, any_i = phase_kernels(sc_inst, cam, dev,
-                                 strip=WIDTH * HEIGHT // STRIP // 2,
-                                 phase="kernels_inst3")
+    hit_i, any_i, lists_i = phase_kernels(
+        sc_inst, cam, dev, strip=WIDTH * HEIGHT // STRIP // 2,
+        phase="kernels_inst3")
     with SkipCounter() as skips:
         launches, img_i, inst = phase_main(sc_inst, cam, dev,
                                            phase="inst3", emit_line=False)
@@ -1566,7 +1614,7 @@ def phase_inst3(sc, cam, dev):
          close_frac=float(close.mean()), close_tol=INST_TOL,
          close_gate=INST_CLOSE,
          max_abs_diff=float(np.abs(img_i - img_b).max()), **fwdbwd)
-    return hit_i, any_i, launches
+    return hit_i, any_i, lists_i, launches
 
 
 def soft_gradient_check(sc, cam, dev, width=WIDTH, height=HEIGHT,
@@ -1901,10 +1949,11 @@ def phase_invert5spec(sc5, img5, dev):
     in one run, launch counts set to 0 just before and read just after;
     then two steps, a checkpoint and one resumed step: params, gradients
     and losses bit-equal. (b) Losses and gradients finite, every param
-    moved. (c) The resumed step's launches recorded, the first hit and
-    the first any launch held against their plain versions (bit-equal).
-    (d) Seconds per step. sc5 is config 5 as ``scene5`` built it (the
-    CLI builds its own). -> (hit stats, any stats, launches)."""
+    moved. (c) The resumed step's launches recorded, the first list
+    build, hit and any launch held against their plain versions
+    (bit-equal). (d) Seconds per step. sc5 is config 5 as ``scene5``
+    built it (the CLI builds its own). -> (hit stats, any stats, lists
+    stats, launches)."""
     import tempfile
 
     import numpy as np
@@ -1948,21 +1997,24 @@ def phase_invert5spec(sc5, img5, dev):
             f"the resumed step launched {len(rec.hit)} hit and "
             f"{len(rec.any)} any kernels")
     c = sc5.accel.n_clusters
-    hit_st, any_st, kinds = new_stats(1), new_stats(1), {}
+    hit_st, any_st, lists_st, kinds = (new_stats(1), new_stats(1),
+                                       new_stats(1), {})
+    hold_lists(lists_st, *rec.lists[0], phase)
     hold_hit(hit_st, kinds, *rec.hit[0], c, phase)
     hold_any(any_st, kinds, *rec.any[0], c, phase)
-    for st in (hit_st, any_st):
+    for st in (hit_st, any_st, lists_st):
         per_launch(st)
     emit(phase=phase, ok=True, width=W5, height=H5, spp=SPEC5_SPP,
          depth=DEPTH5, pixel_batch=INVERT5_BATCH,
          launches=launches,
-         step_launches={"hit_kernel": len(rec.hit),
+         step_launches={"lists_kernel": len(rec.lists),
+                        "hit_kernel": len(rec.hit),
                         "any_kernel": len(rec.any)},
          resume="bit-equal params, gradients and losses",
          kernel_vs_plain="bit-equal", step_seconds=seconds,
-         per_launch_ms=launch_ms(hit_st, any_st),
+         per_launch_ms=launch_ms(hit_st, any_st, lists_st),
          lists=summarize_kinds(kinds), **whole)
-    return hit_st, any_st, launches
+    return hit_st, any_st, lists_st, launches
 
 
 def kernel_record(name, replaces, st, launches, path):
@@ -2003,7 +2055,7 @@ def main(argv=None):
     emit(phase="scene", ok=True, segments=int(sc.segments.p0.shape[0]),
          clusters=sc.accel.n_clusters, lights=sc.n_lights,
          seconds=time.time() - t0)
-    hit_stats, any_stats = phase_kernels(sc, cam, dev)
+    hit_stats, any_stats, lists_stats = phase_kernels(sc, cam, dev)
     if args.stop_after == "kernels":
         return 0
     launches, img3, _ = phase_main(sc, cam, dev)
@@ -2012,27 +2064,29 @@ def main(argv=None):
     train_losses = phase_train(sc, cam, dev)
     phase_golden(sc, cam, dev)
     phase_scenefile3(img3, train_losses, dev)
-    hit_i, any_i, launches_i = phase_inst3(sc, cam, dev)
+    hit_i, any_i, lists_i, launches_i = phase_inst3(sc, cam, dev)
     phase_soft3(sc, cam, dev)
     phase_curves(dev)
     phase_full(dev)
 
     sc5, cam5 = phase_scene5(dev)
     strip5 = W5 * H5 // STRIP // 2      # the strip through the centre
-    hit5, any5 = phase_kernels(sc5, cam5, dev, W5, H5, DEPTH5, strip5,
-                               phase="kernels5")
+    hit5, any5, lists5 = phase_kernels(sc5, cam5, dev, W5, H5, DEPTH5,
+                                       strip5, phase="kernels5")
     launches5, img5, _ = phase_main(sc5, cam5, dev, W5, H5, DEPTH5,
                                     phase="main5")
     phase_train5(sc5, cam5, dev)
     img5_golden = phase_golden5(sc5, cam5, dev)
-    hit5i, any5i, launches5i = phase_invert5spec(sc5, img5_golden, dev)
+    hit5i, any5i, lists5i, launches5i = phase_invert5spec(
+        sc5, img5_golden, dev)
     del img5_golden
     phase_scenefile5(sc5, img5, dev)
     del sc5, cam5, img5
 
     sc4, cam4 = phase_scene4(dev)
-    hit4, any4 = phase_kernels(sc4, cam4, dev, W4, H4, DEPTH4,
-                               W4 * H4 // STRIP // 2, phase="kernels4")
+    hit4, any4, lists4 = phase_kernels(sc4, cam4, dev, W4, H4, DEPTH4,
+                                       W4 * H4 // STRIP // 2,
+                                       phase="kernels4")
     launches4 = phase_ladder(sc4, cam4, dev)
     del sc4, cam4
     phase_bvh(sc, cam, dev)
@@ -2042,16 +2096,21 @@ def main(argv=None):
     records = []
     for suffix, path, lc, stats in (
             ("", "config 3, bench.py workload", launches,
-             (hit_stats, any_stats)),
-            (" (config 5)", "config 5, furry bunny", launches5, (hit5, any5)),
+             (hit_stats, any_stats, lists_stats)),
+            (" (config 5)", "config 5, furry bunny", launches5,
+             (hit5, any5, lists5)),
             (" (instanced)", "config 3 posed as two instances", launches_i,
-             (hit_i, any_i)),
+             (hit_i, any_i, lists_i)),
             (" (config 4)", "config 4, scalp model (ladder)", launches4,
-             (hit4, any4)),
+             (hit4, any4, lists4)),
             (" (config 5 inverse step)",
              "config 5 inverse at spec, 3 invert steps", launches5i,
-             (hit5i, any5i))):
+             (hit5i, any5i, lists5i))):
         records += [
+            kernel_record("lists_kernel" + suffix,
+                          "none (yhair_tpu/ops/intersect_kernel.py:52 "
+                          "_block_cluster_lists is jnp, fused by XLA)",
+                          stats[2], lc["lists_kernel"], path),
             kernel_record("hit_kernel" + suffix,
                           "yhair_tpu/ops/intersect_kernel.py:186", stats[0],
                           lc["hit_kernel"], path),

@@ -336,12 +336,14 @@ def test_instanced_strip_matches_plain(cuda):
     sc = sc._replace(hair=hair, accel=build_instanced(
         sc.accel, chip_smoke.INST_FRAMES, inst_mat=[0, 1], device=cuda))
     before = dict(ik.LAUNCHES)
-    hit, anyk = chip_smoke.phase_kernels(sc, cam, cuda, width=64, height=64,
-                                         depth=3, strip=0,
-                                         phase="kernels_instanced")
+    hit, anyk, lists = chip_smoke.phase_kernels(
+        sc, cam, cuda, width=64, height=64, depth=3, strip=0,
+        phase="kernels_instanced")
     assert all(ik.LAUNCHES[k] > before[k] for k in before)
-    # both instances are searched at every bounce
+    # both instances are searched at every bounce, each search building
+    # two lists
     assert hit["launches"] >= 6 and anyk["launches"] >= 12
+    assert lists["launches"] == hit["launches"] + anyk["launches"]
     assert hit["max_abs_err"] == 0.0
 
 
@@ -455,3 +457,190 @@ def test_bvh_walk_on_the_card_matches_the_cpu(cuda):
                                               log=None, device=cuda))
     diff = np.abs(imgs[0] - imgs[1])
     assert (diff > 0).mean() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# lists_kernel: phase 1 of a search
+
+
+@pytest.fixture(scope="module")
+def hairball_strip():
+    """Config 3 (the 10k-strand hairball, C = 1,024) on the card, and
+    every list build of a 16,384-ray strip at the centre of its 512x512
+    frame at depth 3, as (o, d, t_max, exclude_below) in call order.
+    -> (clusters, calls)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from yhair_tpu_torch.apps import common
+    from yhair_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    sc, cam, *_ = common.load_config(3, device=dev)
+    perm, _ = mesh.tile_pixel_permutation(512, 512)
+    mid = perm.size // 2
+    pid = torch.as_tensor(perm[mid - 8192:mid + 8192], device=dev)
+    calls, lists = [], ik._block_cluster_lists
+
+    def record(o, d, cl, t_max=None, exclude_below=None, return_key=False):
+        calls.append((o, d, t_max, exclude_below))
+        return lists(o, d, cl, t_max, exclude_below, return_key)
+    ik._block_cluster_lists = record
+    try:
+        mesh.trace_pixels(sc, cam, 512, 512, pid, torch.zeros_like(pid),
+                          mesh.key_seed(0), 3, device=dev)
+    finally:
+        ik._block_cluster_lists = lists
+    torch.cuda.synchronize()
+    assert sc.accel.n_clusters == 1024 and len(calls) == 18
+    return sc.accel, calls
+
+
+def _synthetic_lists(c, n, seed, dev):
+    """c random AABBs (every 17th empty, at 4e30, as the cluster build
+    leaves a cluster without segments) and n rays aimed near them.
+    -> (clusters, o, d)."""
+    from yhair_tpu_torch.ops.clusters import Clusters
+
+    rng = np.random.default_rng(seed)
+    centre = rng.normal(size=(c, 3)) * 1.5
+    half = rng.uniform(0.02, 0.6, size=(c, 3))
+    cmin = (centre - half).astype(np.float32)
+    cmax = (centre + half).astype(np.float32)
+    cmin[16::17] = cmax[16::17] = np.float32(4e30)
+    o = rng.normal(size=(n, 3)) * 4.0
+    d = rng.normal(size=(n, 3)) * 0.6 - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    z = torch.zeros(0, device=dev)
+    cl = Clusters(s0=z, s1=z, tc=z, cmin=torch.as_tensor(cmin, device=dev),
+                  cmax=torch.as_tensor(cmax, device=dev), seg_index=z,
+                  n_clusters=c, cluster_size=128)
+    return (cl, torch.as_tensor(o, dtype=torch.float32, device=dev),
+            torch.as_tensor(d, dtype=torch.float32, device=dev))
+
+
+def _list_inputs(case, request, dev):
+    """-> (o, d, clusters, t_max, exclude_below) of one case, after
+    checking that the case holds what it is named for."""
+    if case in ("camera", "bounce", "t_max", "exclude"):
+        cl, calls = request.getfixturevalue("hairball_strip")
+        if case == "camera":
+            o, d, t_max, ex = calls[0]
+        elif case == "bounce":
+            # the last bounce's nearest search, pass 1: sorted rays, the
+            # lanes that died parked at 1e8
+            o, d, t_max, ex = [c for c in calls if c[2] is None][-1]
+            assert bool((o.abs() >= 1e7).all(1).any())
+        elif case == "t_max":
+            # a pass B's bound: 0 where pass A resolved the ray
+            o, d, t_max, _ = next(c for c in calls if c[2] is not None
+                                  and c[3] is not None
+                                  and bool((c[2] == 0).any()))
+            ex = None
+            assert bool((t_max > ik.T_MIN).any())
+        else:
+            o, d, t_max, ex = next(c for c in calls if c[3] is not None)
+            assert bool((ex > -torch.inf).any())
+        return o, d, cl, t_max, ex
+    if case == "config5":
+        # three blocks aimed at the bunny and one of lanes parked at 1e8
+        # looking back along -(1, 1, 1): every box collapses to a point
+        # for them, so that block lists every cluster with segments
+        # (2,344 of 4,096), past MAX_IDS
+        cl = request.getfixturevalue("config5_clusters").to(dev)
+        rng = np.random.default_rng(25)
+        o = rng.normal(size=(512, 3)) * 0.6
+        d = rng.normal(size=(512, 3)) * 0.05 - o
+        o[384:] = 1e8
+        d[384:] = -1.0
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return (torch.as_tensor(o, dtype=torch.float32, device=dev),
+                torch.as_tensor(d, dtype=torch.float32, device=dev), cl,
+                torch.full((512,), 1e30, device=dev), None)
+    c = {"global": 20000, "c1": 1, "c127": 127, "nan": 300}[case]
+    cl, o, d = _synthetic_lists(c, 512, c, dev)
+    t_max = None
+    if case == "global":
+        assert ik._lists_block_bytes(c) > ik.LISTS_SMEM
+    if case == "nan":
+        # block 0's only live ray has a NaN direction
+        d[5, 1] = torch.nan
+        t_max = torch.full((512,), 1e30, device=dev)
+        t_max[:128] = 0.0
+        t_max[5] = 1e30
+    return o, d, cl, t_max, None
+
+
+LIST_CASES = ("camera", "bounce", "t_max", "exclude", "config5", "global",
+              "c1", "c127", "nan")
+
+
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_lists_kernel_matches_plain(cuda, request, case):
+    """ids, counts and key of one launch equal the plain twin's bit for
+    bit: (a) a hairball strip's camera rays; (b) a later bounce's sorted
+    rays with dead lanes at 1e8; (c) t_max with lanes at 0; (d)
+    exclude_below from _visited_threshold; (e) config 5's 4,096 clusters
+    with a list longer than MAX_IDS; (f) C = 20,000, past the shared
+    memory, so the sort runs in global scratch; (g) C of 1 and 127; (h) a
+    ray with a NaN direction, which lists nothing."""
+    o, d, cl, t_max, ex = _list_inputs(case, request, cuda)
+    before = ik.LAUNCHES["lists_kernel"]
+    got = ik._block_cluster_lists(o, d, cl, t_max=t_max, exclude_below=ex,
+                                  return_key=True)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["lists_kernel"] == before + 1
+    want = ik._block_cluster_lists_plain(o, d, cl, t_max, ex,
+                                         return_key=True)
+    for name, a, b in zip(("ids", "counts", "key"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    ids, counts = ik._block_cluster_lists(o, d, cl, t_max=t_max,
+                                          exclude_below=ex)
+    assert torch.equal(ids, got[0]) and torch.equal(counts, got[1])
+    counts = got[1]
+    if case == "config5":
+        assert int(counts.max()) > ik.MAX_IDS
+    elif case == "nan":
+        assert int(counts[0]) == 0 and int(counts[1:].sum()) > 0
+    elif case != "c1":
+        assert int(counts.sum()) > 0 and int(counts.max()) > 1
+
+
+def test_one_nearest_and_one_any_build_four_lists(hairball_strip, cuda):
+    """On the card one nearest_hit and one any_hit over the hairball's
+    1,024 clusters launch lists_kernel 4 times (two passes each), and a
+    65,536-ray build allocates its outputs alone: no (rays, C) tensor."""
+    cl, calls = hairball_strip
+    o, d = calls[0][:2]
+    before = ik.LAUNCHES["lists_kernel"]
+    t, _, hit = ik.nearest_hit(o, d, cl)
+    # just past each hit: the hit rays are occluded, the others are not
+    occ = ik.any_hit(o, d, torch.where(hit, t * 1.001, 1e30).contiguous(),
+                     cl)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES["lists_kernel"] == before + 4
+    assert int(hit.sum()) > 100 and torch.equal(occ, hit)
+
+    o4, d4 = o.repeat(4, 1), d.repeat(4, 1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = ik._block_cluster_lists(o4, d4, cl, return_key=True)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    made = sum(x.numel() * x.element_size() for x in out)
+    assert grown <= made + (1 << 20) < o4.shape[0] * cl.n_clusters
+
+
+def test_lists_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    cl, o, d = _synthetic_lists(64, 256, 1, cuda)
+    t = torch.ones(256, device=cuda)
+    bad = [(o[:200], d[:200], cl, None),
+           (o.double(), d.double(), cl, None),
+           (o, d, cl, t.double()),
+           (torch.cat([o, o], 1)[:, ::2], d, cl, None),
+           (o, d, cl, t.cpu()),
+           (o, d, cl._replace(cmin=cl.cmin.cpu()), None)]
+    before = ik.LAUNCHES["lists_kernel"]
+    for o_, d_, cl_, t_ in bad:
+        with pytest.raises(ValueError):
+            ik._block_cluster_lists(o_, d_, cl_, t_max=t_)
+    assert ik.LAUNCHES["lists_kernel"] == before

@@ -23,7 +23,8 @@ Layer map:
                ray-triangle search, Bezier curves, mesh shape ops (numpy)
   accel/       LBVH build (host numpy), the native C++ cluster builder
                (ctypes), the skip-pointer BVH walk, posed instances
-  ops/         clusters, cluster lists, the two CUDA kernels + plain twins
+  ops/         clusters, the three CUDA kernels (cluster lists, hit, any)
+               + plain twins
   bsdf/        hair and surface BSDFs
   integrator/  wavefront path tracer
   parallel/    counter-hash uniforms, the tile pixel order, rendering and

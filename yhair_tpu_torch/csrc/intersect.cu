@@ -1,5 +1,10 @@
 // Ray - hair-cluster intersection kernels for NVIDIA Hopper (sm_90a).
 //
+// A search has two phases: lists_kernel builds each 128-ray block's
+// front-to-back list of the clusters its rays enter (phase 1, at the end
+// of this file), then hit_kernel or any_kernel tests the block's rays
+// against the listed clusters' segments (phase 2).
+//
 // hit_kernel (with its merge, hit_merge_kernel) replaces the TPU kernel
 // yhair_tpu/ops/intersect_kernel.py:_hit_kernel (launched by _hit_pass
 // through _common_call's pl.pallas_call); any_kernel replaces
@@ -58,6 +63,28 @@
 // ops of the port's _closest_approach do. That keeps a hit's t bit-equal
 // to the integrator's recompute of the winning segment, and the winner
 // equal to the brute-force search under the (t, original id) tie-break.
+//
+// lists_kernel replaces no Pallas kernel: the JAX package's
+// _block_cluster_lists is jnp that XLA fuses, so its (rays, C) slab-test
+// intermediates never reach HBM; the port's torch ops made them in
+// device memory, some 33 launches per 8,192-ray chunk. What bounds it on
+// an H100: about 28 FP32 operations a (ray, cluster) pair (6 sub, 6 mul,
+// 12 min/max, the compares and the running minimum), 128 x C pairs a
+// block, against writes of 4-8 bytes a (block, cluster): so operations,
+// rays x C x 28 / (67 TFLOP/s). The design keeps every pair in registers:
+// one CTA per ray block stages the block's live rays (o, t_max, 1 / d) in
+// shared memory; each thread holds CPT cluster boxes and walks the rays,
+// keeping per cluster the least entry distance of the rays that hit, so
+// no cross-thread reduction is needed. A ray with t_max < T_MIN (resolved
+// by a prefix pass, or padding) can list nothing and is left out. The
+// block's keys then go through one scan that places the clusters it
+// missed, in id order, after its hits, and a bitonic sort of the hits'
+// (key bits, id) pairs; both live in shared memory, or in a per-block
+// slice of global scratch when C is too large for it. Exactness: the
+// same separate sub and mul a slab as the torch ops, min and max that
+// propagate NaN as torch.minimum / torch.maximum do, and keys >= T_MIN >
+// 0, whose bit patterns sort as the floats do: ids, counts and keys equal
+// the plain twin's bit for bit, with its stable argsort's order.
 
 #include <climits>
 #include <cstdint>
@@ -472,6 +499,212 @@ any_kernel(Plan p, const float* __restrict__ o, const float* __restrict__ d,
   }
 }
 
+// ---------------------------------------------------------------------------
+// phase 1: lists_kernel
+
+constexpr int LIST_THREADS = 256;
+constexpr int CPT = 4;  // cluster boxes a thread tests per staged ray
+constexpr int LIST_WARPS = LIST_THREADS / 32;
+constexpr uint32_t NO_HIT_BITS = 0x7149f2cau;  // the bits of NO_HIT
+
+static_assert(LIST_THREADS >= RAYS && LIST_THREADS % 32 == 0,
+              "a list CTA stages its block's rays with one thread each");
+
+struct ListShared {
+  float4 ray_o[RAYS];    // the block's live rays: o.xyz, t_max
+  float4 ray_inv[RAYS];  // 1 / d
+  int warp_sum[LIST_WARPS];
+};
+
+// torch.maximum / torch.minimum: a NaN operand gives NaN (fmaxf and fminf
+// would drop it)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// one axis of the slab test, as the plain twin's torch ops
+__device__ __forceinline__ void slab(float lo, float hi, float o, float inv,
+                                     float& tn, float& tf) {
+  const float t0 = (lo - o) * inv;
+  const float t1 = (hi - o) * inv;
+  tn = max_nan(tn, min_nan(t0, t1));
+  tf = min_nan(tf, max_nan(t0, t1));
+}
+
+// v: a warp-uniform value. -> its sum over the CTA's warps; *before: the
+// sum over the warps before this one. Opens with a barrier, so that
+// earlier readers of the warp sums are done.
+__device__ __forceinline__ int cta_sum(ListShared& sh, int v, int* before) {
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sh.warp_sum[warp] = v;
+  __syncthreads();
+  int pre = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < LIST_WARPS; ++w) {
+    pre += w < warp ? sh.warp_sum[w] : 0;
+    all += sh.warp_sum[w];
+  }
+  *before = pre;
+  return all;
+}
+
+// One CTA per 128-ray block. ids (nb, C): the clusters in the order of
+// torch.argsort(key, stable=True); counts (nb,): the clusters listed;
+// key (nb, C, optional): the block's entry distance, NO_HIT where it
+// lists nothing. A cluster counts for a ray when T_MIN <= tn <= tf and
+// tn <= t_max; exclude drops a cluster whose block entry distance lies
+// strictly below exclude[b]. GLOBAL: the sort buffer and the keys live
+// in the block's slice of scratch instead of shared memory.
+template <bool GLOBAL>
+__global__ void __launch_bounds__(LIST_THREADS)
+lists_kernel(const float* __restrict__ o, const float* __restrict__ d,
+             const float* __restrict__ cmin, const float* __restrict__ cmax,
+             const float* __restrict__ t_max,
+             const float* __restrict__ exclude, int n_clusters, int sort_cap,
+             unsigned long long* __restrict__ scratch,
+             int* __restrict__ ids, int* __restrict__ counts,
+             float* __restrict__ key) {
+  __shared__ ListShared sh;
+  extern __shared__ unsigned long long dyn[];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int C = n_clusters;
+  const unsigned below = (1u << lane) - 1;
+  const size_t row = static_cast<size_t>(b) * C;
+  // sort_cap (key bits, id) pairs, then the C key bit patterns
+  unsigned long long* pairs =
+      GLOBAL ? scratch + b * (static_cast<size_t>(sort_cap) + (C + 1) / 2)
+             : dyn;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(pairs + sort_cap);
+  const float inf = __int_as_float(0x7f800000);
+
+  // 1. the live rays into shared memory, in any order (a minimum does
+  // not depend on it). Every entry distance is at least T_MIN, so a ray
+  // with t_max < T_MIN (or NaN) lists nothing.
+  float ro[3] = {0.0f, 0.0f, 0.0f}, ri[3] = {0.0f, 0.0f, 0.0f};
+  float tm = 0.0f;
+  bool live = false;
+  if (tid < RAYS) {
+    const int r = b * RAYS + tid;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      ro[ax] = o[3 * r + ax];
+      const float dv = d[3 * r + ax];
+      const float small = dv < 0.0f ? -1e-12f : 1e-12f;
+      ri[ax] = 1.0f / (fabsf(dv) < 1e-12f ? small : dv);
+    }
+    tm = t_max != nullptr ? t_max[r] : inf;
+    live = tm >= T_MIN;
+  }
+  const unsigned live_mask = __ballot_sync(0xffffffffu, live);
+  int slot;
+  const int n_live = cta_sum(sh, __popc(live_mask), &slot);
+  if (live) {
+    slot += __popc(live_mask & below);
+    sh.ray_o[slot] = make_float4(ro[0], ro[1], ro[2], tm);
+    sh.ray_inv[slot] = make_float4(ri[0], ri[1], ri[2], 0.0f);
+  }
+  __syncthreads();
+
+  // 2. per cluster, the least entry distance of the rays that hit it;
+  // thread tid owns clusters base + k * LIST_THREADS + tid
+  const float ex = exclude != nullptr ? exclude[b] : -inf;
+  int n_hit = 0, n_fin = 0;
+  for (int base = 0; base < C; base += LIST_THREADS * CPT) {
+    float lo[CPT][3], hi[CPT][3], best[CPT];
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = min(base + k * LIST_THREADS + tid, C - 1);
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        lo[k][ax] = cmin[3 * c + ax];
+        hi[k][ax] = cmax[3 * c + ax];
+      }
+      best[k] = inf;
+    }
+    for (int i = 0; i < n_live; ++i) {
+      const float4 p = sh.ray_o[i], q = sh.ray_inv[i];
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        float tn = T_MIN, tf = NO_HIT;
+        slab(lo[k][0], hi[k][0], p.x, q.x, tn, tf);
+        slab(lo[k][1], hi[k][1], p.y, q.y, tn, tf);
+        slab(lo[k][2], hi[k][2], p.z, q.z, tn, tf);
+        // a hit's tn is a number <= NO_HIT, so best < inf marks a hit
+        if (tn <= tf && tn <= p.w) best[k] = fminf(best[k], tn);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = base + k * LIST_THREADS + tid;
+      if (c < C) {
+        const bool keep = best[k] < inf && !(best[k] < ex);
+        const float kv = keep ? best[k] : NO_HIT;
+        if (key != nullptr) key[row + c] = kv;
+        bits[c] = __float_as_uint(kv);
+        n_hit += keep;
+        n_fin += __float_as_uint(kv) < NO_HIT_BITS;
+      }
+    }
+  }
+  int before;
+  const int total_hit =
+      cta_sum(sh, __reduce_add_sync(0xffffffffu, n_hit), &before);
+  const int total_fin =
+      cta_sum(sh, __reduce_add_sync(0xffffffffu, n_fin), &before);
+  if (tid == 0) counts[b] = total_hit;
+
+  // 3. in id order: clusters with a key below NO_HIT go to the sort
+  // buffer, the others straight to their places after them. Thread tid
+  // reads bits[c] for c = tid (mod LIST_THREADS), which it wrote itself.
+  int done = 0;  // keys below NO_HIT among the earlier chunks
+  for (int base = 0; base < C; base += LIST_THREADS) {
+    const int c = base + tid;
+    const uint32_t kb = c < C ? bits[c] : NO_HIT_BITS;
+    const bool fin = kb < NO_HIT_BITS;
+    const unsigned m = __ballot_sync(0xffffffffu, fin);
+    int pre;
+    const int chunk = cta_sum(sh, __popc(m), &pre);
+    pre += done + __popc(m & below);
+    if (fin) {
+      pairs[pre] = (static_cast<unsigned long long>(kb) << 32) |
+                   static_cast<uint32_t>(c);
+    } else if (c < C) {
+      ids[row + total_fin + (c - pre)] = c;
+    }
+    done += chunk;
+  }
+
+  // 4. bitonic sort of the (key bits, id) pairs, padded to a power of two
+  int p = 1;
+  while (p < total_fin) p <<= 1;
+  for (int i = total_fin + tid; i < p; i += LIST_THREADS) pairs[i] = ~0ull;
+  __syncthreads();
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = tid; t < p / 2; t += LIST_THREADS) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const unsigned long long x = pairs[i], y = pairs[i + j];
+        if ((x > y) == ((i & k) == 0)) {
+          pairs[i] = y;
+          pairs[i + j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < total_fin; i += LIST_THREADS)
+    ids[row + i] = static_cast<int>(pairs[i] & 0xffffffffu);
+}
+
 // CTAs of `kernel` that fit on the current device at once
 template <typename F>
 int persistent_grid(F kernel) {
@@ -528,5 +761,42 @@ extern "C" int yhair_any_pass(const float* o, const float* d,
     cudaMemsetAsync(visits, 0, sizeof(int) * n_blocks, s);
   const Plan p{ids, counts, prefix, tc, scratch, n_blocks, k_cap, chunk};
   any_kernel<<<grid, THREADS, 0, s>>>(p, o, d, t_cap, occ_out, visits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Phase 1 of a search: n_blocks CTAs. t_max, exclude and key may be null
+// (no bound, no exclusion, no key output). sort_cap: the next power of
+// two >= n_clusters. scratch: null to keep a block's sort_cap pairs and
+// n_clusters key bits in dynamic shared memory, else n_blocks slices of
+// that many bytes (rounded up to 8) in global memory.
+extern "C" int yhair_block_lists(const float* o, const float* d,
+                                 const float* cmin, const float* cmax,
+                                 const float* t_max, const float* exclude,
+                                 int n_blocks, int n_clusters, int sort_cap,
+                                 void* scratch, int* ids, int* counts,
+                                 float* key, void* stream) {
+  if (n_blocks == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* global = static_cast<unsigned long long*>(scratch);
+  if (global != nullptr) {
+    lists_kernel<true><<<n_blocks, LIST_THREADS, 0, s>>>(
+        o, d, cmin, cmax, t_max, exclude, n_clusters, sort_cap, global, ids,
+        counts, key);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t bytes =
+      8 * (static_cast<size_t>(sort_cap) + (n_clusters + 1) / 2);
+  // without opting in, static and dynamic shared memory share 48 KB
+  static size_t allowed = 48 * 1024 - sizeof(ListShared);
+  if (bytes > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lists_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = bytes;
+  }
+  lists_kernel<false><<<n_blocks, LIST_THREADS, bytes, s>>>(
+      o, d, cmin, cmax, t_max, exclude, n_clusters, sort_cap, nullptr, ids,
+      counts, key);
   return static_cast<int>(cudaGetLastError());
 }

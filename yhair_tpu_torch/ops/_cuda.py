@@ -65,4 +65,7 @@ def library() -> ctypes.CDLL:
     lib.yhair_hit_pass.restype = i
     lib.yhair_any_pass.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p]
     lib.yhair_any_pass.restype = i
+    lib.yhair_block_lists.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p,
+                                      p]
+    lib.yhair_block_lists.restype = i
     return lib

@@ -1,9 +1,10 @@
 """Ray - segment intersection over the cluster structure
 (``yhair_tpu/ops/intersect_kernel.py``).
 
-Phase 1 (torch ops): slab-test every ray against every cluster AABB,
-reduce to a per-128-ray-block cluster mask and sort each block's hit
-clusters front to back into an id list + count.
+Phase 1 (CUDA, ``csrc/intersect.cu:lists_kernel``): slab-test every ray
+against every cluster AABB, reduce to a per-128-ray-block cluster mask
+and sort each block's hit clusters front to back into an id list +
+count, in one launch.
 Phase 2 (CUDA, ``csrc/intersect.cu``): each list is cut into work items
 of CHUNK consecutive clusters (``_work_items``), which a persistent grid
 takes from a counter; an item tests its block's rays against its
@@ -15,11 +16,11 @@ Two searches share the segment test:
 Both run two passes: a short front-to-back prefix, then the rest of the
 list pruned by what the prefix found (see each docstring).
 
-Kernel wrappers (``hit_pass``, ``any_pass``) launch the CUDA kernel for
-CUDA tensors and raise if they cannot; for CPU tensors they run the plain
-torch versions (``hit_pass_plain``, ``any_pass_plain``), which repeat the
-kernels' arithmetic. ``LAUNCHES["hit_kernel"]`` /
-``LAUNCHES["any_kernel"]`` count the kernels' launches.
+Kernel wrappers (``_block_cluster_lists``, ``hit_pass``, ``any_pass``)
+launch the CUDA kernel for CUDA tensors and raise if they cannot; for CPU
+tensors they run the plain torch versions (``_block_cluster_lists_plain``,
+``hit_pass_plain``, ``any_pass_plain``), which repeat the kernels'
+arithmetic. ``LAUNCHES`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -43,10 +44,15 @@ K_ANY_PREFIX = 16
 # clusters per work item of the kernels (chosen by timing the bench
 # strip's launches on an H100 at other values: PERF.md)
 CHUNK = 4
-# rays per phase-1 chunk: (chunk, C) temporaries of 32 MB at C = 1024
+# rays per chunk of the plain phase 1: (chunk, C) temporaries of 32 MB at
+# C = 1024
 RAY_CHUNK = 64 * BLOCK
+# dynamic shared memory a lists_kernel CTA may take for its sort buffer
+# and keys (_lists_block_bytes); past it (C > 16,384) the kernel works in
+# a per-block slice of a global scratch tensor
+LISTS_SMEM = 200 * 1024
 # CUDA kernel launches, added to by the wrappers only where they launch
-LAUNCHES = {"hit_kernel": 0, "any_kernel": 0}
+LAUNCHES = {"lists_kernel": 0, "hit_kernel": 0, "any_kernel": 0}
 
 
 def _k_cap(c):
@@ -61,47 +67,111 @@ def _block_cluster_lists(o, d, cl: Clusters, t_max=None, exclude_below=None,
                          return_key=False):
     """Per-block front-to-back hit-cluster ids and counts.
 
-    o, d: (N, 3), N % 128 == 0. t_max (N,): a cluster counts for a ray
-    only when its entry distance tn lies in [T_MIN, t_max].
+    o, d: (N, 3) float32, N % 128 == 0. t_max (N,): a cluster counts for a
+    ray only when its entry distance tn lies in [T_MIN, t_max].
     exclude_below (nb,): drop clusters whose block entry distance is
     strictly below it (a prefix pass already visited them).
     -> (ids (nb, C) int32, counts (nb,) int32[, key (nb, C)]); key is the
-    sort key: the block's entry distance, +INF for clusters it misses.
+    sort key: the block's entry distance, +INF for clusters it misses; ids
+    are the clusters in the order of a stable argsort of key.
+
+    CUDA tensors: one ``lists_kernel`` launch; CPU tensors:
+    ``_block_cluster_lists_plain``. Both take only contiguous float32
+    inputs on the rays' device, and raise ValueError on others.
     """
     with trace.span("yhair.lists"):
-        n, c = o.shape[0], cl.n_clusters
-        small = torch.where(d < 0, -1e-12, 1e-12).to(d.dtype)
-        inv = 1.0 / torch.where(torch.abs(d) < 1e-12, small, d)
-        block_hit, tn_block = [], []
-        for lo in range(0, n, RAY_CHUNK):
-            oc, invc = o[lo:lo + RAY_CHUNK], inv[lo:lo + RAY_CHUNK]
-            m = oc.shape[0]
-            tn = torch.full((m, c), T_MIN, dtype=o.dtype, device=o.device)
-            tf = torch.full((m, c), INF, dtype=o.dtype, device=o.device)
-            for ax in range(3):
-                t0 = ((cl.cmin[None, :, ax] - oc[:, ax, None])
-                      * invc[:, ax, None])
-                t1 = ((cl.cmax[None, :, ax] - oc[:, ax, None])
-                      * invc[:, ax, None])
-                tn = torch.maximum(tn, torch.minimum(t0, t1))
-                tf = torch.minimum(tf, torch.maximum(t0, t1))
-            hit = tn <= tf
-            if t_max is not None:
-                hit = hit & (tn <= t_max[lo:lo + RAY_CHUNK, None])
-            block_hit.append(hit.view(-1, BLOCK, c).any(1))
-            tn_block.append(torch.where(hit, tn, INF).view(-1, BLOCK, c)
-                            .amin(1))
-        block_hit = torch.cat(block_hit)
-        tn_block = torch.cat(tn_block)
-        if exclude_below is not None:
-            block_hit = block_hit & ~(tn_block < exclude_below[:, None])
-        counts = block_hit.sum(1).to(torch.int32)
-        key = torch.where(block_hit, tn_block, INF)
-        # stable, as jnp.argsort: ties keep cluster order
-        order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
-        if return_key:
-            return order, counts, key
-        return order, counts
+        _check_lists(o, d, cl, t_max, exclude_below)
+        if o.device.type == "cpu":
+            return _block_cluster_lists_plain(o, d, cl, t_max, exclude_below,
+                                              return_key)
+        from . import _cuda
+        lib = _cuda.library()
+        nb, c = o.shape[0] // BLOCK, cl.n_clusters
+        ids = torch.empty((nb, c), dtype=torch.int32, device=o.device)
+        counts = torch.empty(nb, dtype=torch.int32, device=o.device)
+        key = (torch.empty((nb, c), dtype=torch.float32, device=o.device)
+               if return_key else None)
+        per_block = _lists_block_bytes(c)
+        scratch = (torch.empty(nb * per_block // 8, dtype=torch.int64,
+                               device=o.device)
+                   if per_block > LISTS_SMEM else None)
+        err = lib.yhair_block_lists(
+            _ptr(o), _ptr(d), _ptr(cl.cmin), _ptr(cl.cmax), _opt_ptr(t_max),
+            _opt_ptr(exclude_below), nb, c, _sort_cap(c), _opt_ptr(scratch),
+            _ptr(ids), _ptr(counts), _opt_ptr(key),
+            torch.cuda.current_stream(o.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"lists kernel launch failed: CUDA error {err}")
+        LAUNCHES["lists_kernel"] += 1
+        return (ids, counts, key) if return_key else (ids, counts)
+
+
+def _block_cluster_lists_plain(o, d, cl: Clusters, t_max=None,
+                               exclude_below=None, return_key=False):
+    """Torch twin of ``lists_kernel``: ``_block_cluster_lists`` in torch
+    ops over chunks of RAY_CHUNK rays."""
+    n, c = o.shape[0], cl.n_clusters
+    small = torch.where(d < 0, -1e-12, 1e-12).to(d.dtype)
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-12, small, d)
+    block_hit, tn_block = [], []
+    for lo in range(0, n, RAY_CHUNK):
+        oc, invc = o[lo:lo + RAY_CHUNK], inv[lo:lo + RAY_CHUNK]
+        m = oc.shape[0]
+        tn = torch.full((m, c), T_MIN, dtype=o.dtype, device=o.device)
+        tf = torch.full((m, c), INF, dtype=o.dtype, device=o.device)
+        for ax in range(3):
+            t0 = ((cl.cmin[None, :, ax] - oc[:, ax, None])
+                  * invc[:, ax, None])
+            t1 = ((cl.cmax[None, :, ax] - oc[:, ax, None])
+                  * invc[:, ax, None])
+            tn = torch.maximum(tn, torch.minimum(t0, t1))
+            tf = torch.minimum(tf, torch.maximum(t0, t1))
+        hit = tn <= tf
+        if t_max is not None:
+            hit = hit & (tn <= t_max[lo:lo + RAY_CHUNK, None])
+        block_hit.append(hit.view(-1, BLOCK, c).any(1))
+        tn_block.append(torch.where(hit, tn, INF).view(-1, BLOCK, c)
+                        .amin(1))
+    block_hit = torch.cat(block_hit)
+    tn_block = torch.cat(tn_block)
+    if exclude_below is not None:
+        block_hit = block_hit & ~(tn_block < exclude_below[:, None])
+    counts = block_hit.sum(1).to(torch.int32)
+    key = torch.where(block_hit, tn_block, INF)
+    # stable, as jnp.argsort: ties keep cluster order
+    order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
+    if return_key:
+        return order, counts, key
+    return order, counts
+
+
+def _sort_cap(c):
+    """lists_kernel's sort buffer: the next power of two >= C pairs."""
+    return 1 << max(c - 1, 0).bit_length()
+
+
+def _lists_block_bytes(c):
+    """A lists_kernel block's sort buffer and C key bit patterns, in
+    bytes (a multiple of 8)."""
+    return 8 * (_sort_cap(c) + (c + 1) // 2)
+
+
+def _check_lists(o, d, cl, t_max, exclude_below):
+    n = o.shape[0]
+    if n % BLOCK or o.shape != (n, 3) or d.shape != (n, 3):
+        raise ValueError(f"rays must be (N, 3) with N % {BLOCK} == 0")
+    c = cl.n_clusters
+    expect = [(o, (n, 3)), (d, (n, 3)), (cl.cmin, (c, 3)), (cl.cmax, (c, 3))]
+    if t_max is not None:
+        expect.append((t_max, (n,)))
+    if exclude_below is not None:
+        expect.append((exclude_below, (n // BLOCK,)))
+    for x, shape in expect:
+        if x.shape != shape or x.dtype != torch.float32:
+            raise ValueError(f"list inputs must be float32 {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != o.device or not x.is_contiguous():
+            raise ValueError("list inputs must be contiguous on one device")
 
 
 def _visited_threshold(key, ids, counts, n_visited):
@@ -256,6 +326,10 @@ def any_pass_plain(o, d, t_cap, ids, counts, tc, k_cap,
 
 def _ptr(x):
     return x.data_ptr()
+
+
+def _opt_ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _check_rays(o, d, tc, *per_ray):
