@@ -2,7 +2,7 @@
 seeds in one process: the upper readings its limits are set from.
 
     python3 perfbench/control.py --workload <cell> --seeds 1,2,3 \\
-        --plant control|unchanged|half|altered
+        --plant control|<fault>
 
 Each seed is one run as perfbench/run.py makes it (set-up, a window of
 BENCHMARK.json's ``run_seconds``, the check, the same ``correct``), with
@@ -10,8 +10,9 @@ BENCHMARK.json's ``run_seconds``, the check, the same ``correct``), with
 - ``control``: the plain reference in the precision below the one the
   configuration states (bfloat16 for float32) judged in the program's
   place, over the same units the window produced;
-- ``unchanged``, ``half``, ``altered``: that fault of lib/faults.py
-  planted in the program.
+- a fault of the cell's traffic kind (the driver's own ``FAULTS``, else
+  the kind's entry in lib/faults.py: ``unchanged``, ``half``,
+  ``altered`` for ``invert`` and ``render``) planted in the program.
 
 Prints each run's result line; ``correct`` has to come out false. The
 benchmark's own runs never run this.
@@ -32,7 +33,7 @@ def main(argv=None):
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", required=True)
     p.add_argument("--plant", required=True,
-                   choices=("control", "unchanged", "half", "altered"))
+                   help="control, or a fault of the cell's traffic kind")
     args = p.parse_args(argv)
     here = str(Path(__file__).resolve().parent)
     sys.path[:] = [q for q in sys.path if str(Path(q or ".").resolve())
@@ -51,6 +52,11 @@ def main(argv=None):
     layout = harness.Layout(ROOT)
     kind = layout.workload(args.workload)["kind"]
     driver = layout.driver(kind)
+    names = getattr(driver, "FAULTS", None) or faults.FAULTS[kind]
+    if args.plant != "control" and args.plant not in names:
+        print(f"control: {kind} has the faults {sorted(names)}",
+              file=sys.stderr)
+        return 2
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         if args.plant == "control":

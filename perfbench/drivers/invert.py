@@ -30,6 +30,15 @@ def samples_per_unit(w):
     return px * w["spp"]
 
 
+def tiny(w):
+    """The cell cut to the CPU tests' size: a 32x32 image at 2 samples a
+    pixel, depth 2, 256 pixels a step where the cell draws tiles, and the
+    tests' 16x16 target ``tiny.pfm``."""
+    return dict(w, width=32, height=32, spp=2, max_depth=2,
+                pixel_batch=w["pixel_batch"] and 256,
+                target=dict(w["target"], file="tiny.pfm"))
+
+
 def initial_params(scene_d, w):
     """The benchmark's starting values: float32 of init_scale times the
     scene's float64 truth, handed to both sides."""

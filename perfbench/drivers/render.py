@@ -26,6 +26,13 @@ def samples_per_unit(w):
     return w["width"] * w["height"] * w["spp"]
 
 
+def tiny(w):
+    """The cell cut to the CPU tests' size: a 32x32 image at depth 2,
+    2 samples a pixel (1 where the cell takes 1), 2 tiles checked."""
+    return dict(w, width=32, height=32, spp=min(w["spp"], 2), max_depth=2,
+                check_tiles=2)
+
+
 def image_seed(seed, k):
     return int(seed) + 1 + k
 

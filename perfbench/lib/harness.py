@@ -8,13 +8,13 @@ metric lives in a file of its own, found by the names in
 - ``perfbench/workloads/<cell>.json``: the cell's traffic (its kind,
   sizes, step or image parameters) and the limits of its checks;
 - the configuration's ``file`` (``perfbench/configs/<config>.json``):
-  the scene's generator and the rays each bounce casts;
+  the scene's generator (a function of ``perfbench/scenes/<module>.py``
+  and its arguments) and the rays each bounce casts;
 - ``perfbench/drivers/<kind>.py``: set-up, one timed unit, the answers
   and their check;
 - ``perfbench/metrics/<metric>.py``: ``read(run)`` -> a number or None,
-  and optionally ``SPANS`` (labelled ranges around program functions
-  in the traced run) and ``prepare(run)`` (hooks for the traced run,
-  returning a callable that removes them).
+  and optionally ``prepare(run)`` (hooks for the traced run, returning
+  a callable that removes them).
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from pathlib import Path
 
 import numpy as np
 
-PKG = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "yhair_tpu")
 # the control's precision: the nearest below the one a configuration
 # states, in which the tracer's arithmetic (elementwise, no matmul, so
@@ -145,8 +144,8 @@ class Run:
         """The configuration's scene dict and camera dict, from its
         frozen generator."""
         gen = self.config["generator"]
-        mod = load_file_module(PKG / "scenes" / f"{gen['module']}.py",
-                               "scene")
+        mod = load_file_module(
+            self.layout.dir / "scenes" / f"{gen['module']}.py", "scene")
         return getattr(mod, gen["function"])(**gen.get("kwargs", {}))
 
     def target(self):

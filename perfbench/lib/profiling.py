@@ -3,55 +3,23 @@ what is read from them. The first records the device's activity alone
 (``DeviceWindow``): with no host events to record, the host runs near
 its untraced speed, so the device's busy share of that window is the
 idle share of a run. The second records host and device (``Profile``):
-labelled ranges around program functions, the device time launched
-under each, kernels by name, and the host ranges open while the device
-idled; its host cost stretches its window.
-
-Ranges are the benchmark's own: a metric file names program functions
-(``"package.module:function"``) and the harness replaces each module
-attribute by a wrapper that opens a ``record_function`` range, for the
-traced window only. The program's callers look the attribute up when
-they call it, so they enter the range. Kernels launched through ctypes
-are not tied to a range; they are found by their names in the device
-trace.
+host ranges (the program's ``yhair.*`` spans among them, read by
+``lib/program.py``), device operations with the host time of their
+launch, kernels by name, and what the host was doing while the device
+idled; its host cost stretches its window. Kernels launched through
+ctypes are found by their names in the device trace.
 """
 
 from __future__ import annotations
 
-import importlib
 import re
 import time
-from contextlib import contextmanager
 
 import numpy as np
 
 WINDOW = "perfbench:window"
-AUTOGRAD = "autograd::engine::evaluate_function:"
-
-
-@contextmanager
-def spans(labels):
-    """labels: {label: "module:function"}; wraps each for the block."""
-    from torch.profiler import record_function
-
-    patched = []
-
-    def labelled(label, fn):
-        def run(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
-        return run
-    try:
-        for label, where in labels.items():
-            mod_name, attr = where.split(":")
-            mod = importlib.import_module(mod_name)
-            orig = getattr(mod, attr)
-            setattr(mod, attr, labelled(label, orig))
-            patched.append((mod, attr, orig))
-        yield
-    finally:
-        for mod, attr, orig in reversed(patched):
-            setattr(mod, attr, orig)
+# the program's own spans (yhair_tpu_torch/utils/trace.py)
+PROGRAM = "yhair."
 
 
 def _ns(e):
@@ -77,26 +45,15 @@ def _union(intervals):
     return arr[:, 0], arr[:, 1]
 
 
-def _inside(times, intervals):
-    """Boolean mask: which times fall inside the union of intervals."""
-    lo, hi = _union(intervals)
-    if not len(lo):
-        return np.zeros(len(times), dtype=bool)
-    k = np.searchsorted(lo, times, side="right") - 1
-    return (k >= 0) & (times <= hi[np.maximum(k, 0)])
-
-
 class Profile:
     """What a profiled window holds, read from the profiler's raw events
     (building its per-event Python objects takes minutes for an image's
     worth of operations): device operations with the host time of their
     launch (by correlation id), host ranges, and the window."""
 
-    def __init__(self, prof, window_s, units, labels=()):
+    def __init__(self, prof, window_s, units):
         self.window_s = window_s
         self.units = units
-        # the ranges' own marks on the device timeline are no operations
-        skip = set(labels) | {WINDOW}
         launch_at = {}
         dev, host, win = [], [], None
         for e in prof.profiler.kineto_results.events():
@@ -104,7 +61,7 @@ class Profile:
             name = e.name()
             if _is_device(e):
                 note = getattr(e, "is_user_annotation", None)
-                if name in skip or (note is not None and note()):
+                if name == WINDOW or (note is not None and note()):
                     continue
                 dev.append((a, b, name, e.correlation_id()))
             else:
@@ -125,28 +82,6 @@ class Profile:
         self._launch = np.array([launch_at.get(c, np.nan) for *_, c in dev],
                                 dtype=np.float64)
         self._dur = np.array([b - a for a, b, _, _ in dev], dtype=np.float64)
-        self._ranges = {}
-        for a, b, n in host:
-            if n in skip or n.startswith(AUTOGRAD):
-                self._ranges.setdefault(
-                    AUTOGRAD if n.startswith(AUTOGRAD) else n, []).append(
-                        (a, b))
-
-    def _device_ns_under(self, key):
-        spans = self._ranges.get(key, [])
-        if not spans or not len(self._dur):
-            return 0.0
-        return float(self._dur[_inside(self._launch, spans)].sum())
-
-    @property
-    def autograd_device_us(self):
-        """Device microseconds of the operations the autograd engine
-        launched."""
-        return self._device_ns_under(AUTOGRAD) / 1e3
-
-    def device_us(self, label):
-        """Device microseconds of the operations launched under a range."""
-        return self._device_ns_under(label) / 1e3
 
     def kernels(self, pattern):
         """Device events whose name matches, in order, each (start ns,
@@ -168,40 +103,51 @@ class Profile:
                 merged.append([a, b])
         return merged
 
-    def idle_gaps(self, top=10, walk=64):
-        """[[host range, seconds]]: the device's idle time in the window,
-        summed by the innermost host range open at the middle of each
-        gap (the latest-starting one that has not ended), largest
-        first."""
+    def idle_gaps(self, top=10):
+        """[[name, seconds]]: the device's idle time in the window, summed
+        by what the host was doing at the middle of each gap: the
+        innermost of the program's ``yhair.*`` spans open there, else the
+        innermost host range open there (the latest-starting one that has
+        not ended); largest first."""
         lo, hi = self.win
         busy = self.busy_intervals()
         edges = np.array([lo] + [x for ab in busy for x in ab] + [hi])
         a, b = edges[0::2], edges[1::2]
         keep = b > a
         a, b = a[keep], b[keep]
-        host = [h for h in self.host if h[2] != WINDOW]
         if not len(a):
             return []
-        starts = np.array([h[0] for h in host] or [np.inf])
-        ends = np.array([h[1] for h in host] or [-np.inf])
-        names = [h[2] for h in host] or ["(between host operations)"]
         mid = 0.5 * (a + b)
-        idx = np.searchsorted(starts, mid, side="right") - 1
-        found = np.full(mid.shape, -1)
-        open_ = idx >= 0
-        for _ in range(walk):
-            ok = open_ & (found < 0) & (ends[np.maximum(idx, 0)] >= mid)
-            found[ok] = idx[ok]
-            idx = np.where(open_ & (found < 0), idx - 1, idx)
-            open_ = open_ & (idx >= 0)
-            if not (open_ & (found < 0)).any():
-                break
+        host = [h for h in self.host if h[2] != WINDOW]
+        spans = [h for h in host if h[2].startswith(PROGRAM)]
+        names = []
+        for i, j in zip(_innermost(spans, mid), _innermost(host, mid)):
+            names.append(spans[i][2] if i >= 0 else host[j][2] if j >= 0
+                         else "(between host operations)")
         totals = {}
-        for f, dt in zip(found, (b - a) / 1e9):
-            name = names[f] if f >= 0 else "(between host operations)"
+        for name, dt in zip(names, (b - a) / 1e9):
             totals[name] = totals.get(name, 0.0) + float(dt)
         items = sorted(totals.items(), key=lambda kv: -kv[1])
         return [[k[:120], v] for k, v in items[:top]]
+
+
+def _innermost(ranges, times):
+    """ranges: [(start, end, name)] sorted by start; times: ascending. ->
+    for each time the index of the latest-starting range open at it (start
+    <= t <= end), or -1. One sweep: a range is pushed when the sweep
+    passes its start, and popped from the top once it has ended, since no
+    later time finds it open."""
+    out = np.full(len(times), -1)
+    stack, j = [], 0
+    for q, t in enumerate(times):
+        while j < len(ranges) and ranges[j][0] <= t:
+            stack.append(j)
+            j += 1
+        while stack and ranges[stack[-1]][1] < t:
+            stack.pop()
+        if stack:
+            out[q] = stack[-1]
+    return out
 
 
 class DeviceWindow:
@@ -257,8 +203,8 @@ def device_window(unit, first, n_units, device):
     return DeviceWindow(prof, window_s)
 
 
-def profile_units(unit, first, n_units, device, labels=()):
+def profile_units(unit, first, n_units, device):
     """Run the units with host and device activity recorded. ->
     Profile."""
     prof, window_s = _profiled(unit, first, n_units, device, host=True)
-    return Profile(prof, window_s, n_units, labels)
+    return Profile(prof, window_s, n_units)

@@ -13,7 +13,7 @@ counters in ``run.cache`` and turns tracing off.
 ``run.profile.host``. For each name: its self-intervals (its intervals
 minus those of the ``yhair.*`` spans nested in them), the device time
 launched in them (each operation by the host time of its launch, as
-``Profile.device_us`` finds it), and the device's idle time in them
+``Profile`` records it), and the device's idle time in them
 (their length minus their exact overlap with the union of the device's
 operations). Device marks of the ranges themselves (device events named
 ``yhair.*``) are no operations and are left out. Against a program
@@ -189,20 +189,14 @@ def layers(run):
 
 def report(run, table, after_open):
     """One line a span on standard error, in ms per 2^20 samples: self
-    time, device time launched in it, device idle in it; then the two
-    clock checks and the lanes against the counted rays."""
+    time, device time launched in it, device idle in it; then the clock
+    check and the lanes against the counted rays."""
     per = run.samples_per_unit * run.profile.units / (1 << 20)
     for name, t in table.items():
         print(f"perfbench: span {name} x{t['count']}: self "
               f"{t['self_ns'] / 1e6 / per!r}, device "
               f"{t['device_ns'] / 1e6 / per!r}, idle "
               f"{t['idle_ns'] / 1e6 / per!r} ms/Msample", file=sys.stderr)
-    lists = table.get(PREFIX + "lists")
-    outside = run.profile.device_us("layer:cluster_lists") * 1e3
-    if lists is not None and outside > 0:
-        print(f"perfbench: device ns under yhair.lists {lists['device_ns']!r}"
-              f", under layer:cluster_lists {outside!r}, ratio "
-              f"{lists['device_ns'] / outside!r}", file=sys.stderr)
     print(f"perfbench: operations launched in a span that start after it "
           f"opens: {after_open!r}", file=sys.stderr)
     counts = run.cache.get(KEY, {}).get("counters") or {}

@@ -1,11 +1,10 @@
 """backward_ms.fwdbwd: device ms per 2^20 camera samples of the
-kernels the autograd engine launched (every
-"autograd::engine::evaluate_function:" range)."""
+operations launched in the self time of the program's yhair.backward
+spans (each strip's ``backward()``: the autograd engine's kernels), in
+the host + device window (lib/program.py)."""
 
-from perfbench.lib.readers import ms_per_msample
+from perfbench.lib.program import ms, prepare  # noqa: F401
 
 
 def read(run):
-    if run.unit_name != "fwdbwd_step" or run.profile is None:
-        return None
-    return ms_per_msample(run, run.profile.autograd_device_us)
+    return ms(run, "fwdbwd_step", "backward", "device_ns")

@@ -1,13 +1,10 @@
 """cluster_lists_ms.render: device ms per 2^20 camera samples of the
-kernels launched under ops/intersect_kernel._block_cluster_lists."""
+operations launched in the program's yhair.lists spans (each
+ops/intersect_kernel._block_cluster_lists call: one lists_kernel launch
+on the card), in the host + device window (lib/program.py)."""
 
-from perfbench.lib.readers import ms_per_msample
-
-SPANS = {"layer:cluster_lists":
-         "yhair_tpu_torch.ops.intersect_kernel:_block_cluster_lists"}
+from perfbench.lib.program import ms, prepare  # noqa: F401
 
 
 def read(run):
-    if run.unit_name != "image":
-        return None
-    return ms_per_msample(run, run.profile.device_us("layer:cluster_lists"))
+    return ms(run, "image", "lists", "device_ns")

@@ -130,15 +130,10 @@ def run_cell(layout, cell, seed, seconds, trace, dev, t_start, fault=None,
         if trace:
             n = run.workload["trace_units"]
             run.device_window = profiling.device_window(unit, 0, n, dev)
-            labels = {}
-            for r in readers.values():
-                labels.update(getattr(r, "SPANS", {}))
             undo = [r.prepare(run) for r in readers.values()
                     if hasattr(r, "prepare")]
             try:
-                with profiling.spans(labels):
-                    run.profile = profiling.profile_units(unit, n, n, dev,
-                                                          labels)
+                run.profile = profiling.profile_units(unit, n, n, dev)
             finally:
                 for u in undo:
                     if u is not None:

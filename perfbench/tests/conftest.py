@@ -19,11 +19,6 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-TINY_SCENES = {"hairball3": {"n_strands": 200, "n_seg": 4, "seed": 11},
-               "bunny5": {"n_strands": 300, "n_seg": 3, "seed": 17,
-                          "subdiv": 1}}
-
-
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA card; skips without one")
@@ -45,37 +40,85 @@ def write_pfm(path, img):
                            + img[::-1].tobytes())
 
 
-def make_tiny_root(root: Path):
-    """A benchmark tree like the repository's, with every cell cut to a
-    32x32 image of a few hundred strands (drivers and metric files are
-    the repository's)."""
-    src = ROOT / "perfbench"
+def bench(src=ROOT):
+    """BENCHMARK.json of a benchmark tree."""
+    return json.loads((Path(src) / "BENCHMARK.json").read_text())
+
+
+def cells(src=ROOT):
+    """The cells of a benchmark tree, in BENCHMARK.json's order."""
+    return [w["name"] for w in bench(src)["workloads"]]
+
+
+def workload(src, cell):
+    """A cell's workload file."""
+    return json.loads((Path(src) / "perfbench" / "workloads"
+                       / f"{cell}.json").read_text())
+
+
+def driver(src, kind):
+    from perfbench.lib import harness
+    return harness.Layout(src).driver(kind)
+
+
+def _need(mapping, key, where):
+    if key not in mapping:
+        raise KeyError(f"{where} has no {key!r} (perfbench/README.md, "
+                       f"'Adding to it', says what each file carries)")
+    return mapping[key]
+
+
+def make_tiny_root(root: Path, src: Path = ROOT):
+    """A copy of the benchmark tree ``src`` with every cell cut to its
+    tests' size: each configuration's generator takes the arguments of
+    its file's ``tiny`` key, each workload goes through its driver's
+    ``tiny(workload)``. Drivers, metric files, scenes and data are
+    ``src``'s (linked); ``data/tiny.pfm`` is a 16x16 target for the
+    drivers whose tiny cells name it."""
+    src = Path(src)
+    bench_src = src / "perfbench"
     (root / "perfbench" / "configs").mkdir(parents=True)
     (root / "perfbench" / "workloads").mkdir()
     (root / "perfbench" / "data").mkdir()
-    for sub in ("drivers", "metrics"):
-        (root / "perfbench" / sub).symlink_to(src / sub)
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    for c in bench["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
-        cfg["generator"]["kwargs"] = TINY_SCENES[c["name"]]
-        (root / c["file"]).write_text(json.dumps(cfg))
+    for sub in ("drivers", "metrics", "scenes"):
+        (root / "perfbench" / sub).symlink_to(bench_src / sub)
     rng = np.random.default_rng(0)
     write_pfm(root / "perfbench" / "data" / "tiny.pfm",
               rng.random((16, 16, 3)) * 0.2)
-    for w in bench["workloads"]:
-        wl = json.loads((src / "workloads" / f"{w['name']}.json")
-                        .read_text())
-        wl.update(width=32, height=32, spp=2, max_depth=2)
-        if wl["kind"] == "invert":
-            wl["pixel_batch"] = wl["pixel_batch"] and 256
-            wl["target"]["file"] = "tiny.pfm"
-        else:
-            wl["check_tiles"] = 2
-        (root / "perfbench" / "workloads" / f"{w['name']}.json").write_text(
-            json.dumps(wl))
+    for f in (bench_src / "data").iterdir():
+        if f.name != "tiny.pfm":
+            (root / "perfbench" / "data" / f.name).symlink_to(f)
+    b = bench(src)
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    for c in b["configs"]:
+        cfg = json.loads((src / c["file"]).read_text())
+        cfg["generator"]["kwargs"] = _need(cfg, "tiny", src / c["file"])
+        (root / c["file"]).parent.mkdir(parents=True, exist_ok=True)
+        (root / c["file"]).write_text(json.dumps(cfg))
+    for name in cells(src):
+        path = bench_src / "workloads" / f"{name}.json"
+        wl = json.loads(path.read_text())
+        kind = _need(wl, "kind", path)
+        tiny = _need(vars(driver(src, kind)), "tiny",
+                     bench_src / "drivers" / f"{kind}.py")
+        (root / "perfbench" / "workloads" / f"{name}.json").write_text(
+            json.dumps(tiny(wl)))
     return root
+
+
+def tiny_scene(config, src=ROOT, kwargs=None):
+    """A configuration's scene and camera dicts at its tests' size (or
+    with the generator arguments ``kwargs``)."""
+    import torch
+
+    from perfbench.lib import harness
+    layout = harness.Layout(src)
+    cell = next(w["name"] for w in layout.bench["workloads"]
+                if w["config"] == config)
+    run = harness.Run(layout, cell, 1, torch.device("cpu"))
+    run.config["generator"]["kwargs"] = kwargs or _need(
+        run.config, "tiny", Path(src) / run.config_entry["file"])
+    return run.scene()
 
 
 @pytest.fixture(scope="session")

@@ -1,19 +1,39 @@
-"""The frozen inputs under perfbench/ equal what they were copied from."""
-
-import importlib.util
+"""The frozen inputs under perfbench/ equal what they were copied from:
+each configuration's generator, where ``scenes/generators.py`` has a
+function of its name, and each workload's target, against
+``goldens/``."""
 
 import numpy as np
 import pytest
 
-from conftest import ROOT
+from conftest import ROOT, bench, cells, workload
 
 
-def _frozen():
-    spec = importlib.util.spec_from_file_location(
-        "frozen_generators", ROOT / "perfbench" / "scenes" / "generators.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def frozen_cases(src=ROOT):
+    """(module, function, kwargs) of each configuration whose generator
+    has a namesake in the repository's scenes/generators.py."""
+    import json
+
+    from scenes import generators
+    out = []
+    for c in bench(src)["configs"]:
+        gen = json.loads((src / c["file"]).read_text())["generator"]
+        if hasattr(generators, gen["function"]):
+            out.append((gen["module"], gen["function"], gen["kwargs"]))
+    return out
+
+
+def target_files(src=ROOT):
+    """Each target file a workload names, once."""
+    names = [workload(src, c).get("target", {}).get("file")
+             for c in cells(src)]
+    return sorted({n for n in names if n})
+
+
+def _frozen(src, module):
+    from perfbench.lib.harness import load_file_module
+    return load_file_module(src / "perfbench" / "scenes" / f"{module}.py",
+                            "frozen")
 
 
 def _equal(a, b):
@@ -26,19 +46,24 @@ def _equal(a, b):
     return a == b
 
 
-@pytest.mark.parametrize("fn,kwargs", [
-    ("curly_hairball", {"n_strands": 10000, "n_seg": 12, "seed": 11}),
-    ("furry_bunny", {"n_strands": 50000, "n_seg": 6, "seed": 17,
-                     "subdiv": 2}),
-])
-def test_generators_equal_the_originals(fn, kwargs):
+def generator_equals_the_original(module, fn, kwargs, src=ROOT):
     from scenes import generators
-    frozen = getattr(_frozen(), fn)(**kwargs)
+    frozen = getattr(_frozen(src, module), fn)(**kwargs)
     original = getattr(generators, fn)(**kwargs)
     assert _equal(frozen, original)
 
 
-@pytest.mark.parametrize("name", ["config3.pfm", "config5.pfm"])
+CASES = frozen_cases()
+
+
+@pytest.mark.parametrize("module,fn,kwargs", CASES,
+                         ids=[f"{fn}-kwargs{k}"
+                              for k, (_, fn, _) in enumerate(CASES)])
+def test_generators_equal_the_originals(module, fn, kwargs):
+    generator_equals_the_original(module, fn, kwargs)
+
+
+@pytest.mark.parametrize("name", target_files())
 def test_targets_are_the_goldens(name):
     assert ((ROOT / "perfbench" / "data" / name).read_bytes()
             == (ROOT / "goldens" / name).read_bytes())

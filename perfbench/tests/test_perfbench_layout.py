@@ -5,24 +5,33 @@ import json
 
 import pytest
 
-from conftest import ROOT, make_tiny_root, run_tiny
+from conftest import ROOT, cells, driver, make_tiny_root, run_tiny, workload
 
-CELLS = ["hairball3.fwdbwd-frame", "bunny5.invert-spec",
-         "hairball3.render-spec"]
+# the counts PERF.md cites; a cell not named here is held to its files
+DOCUMENTED = {"hairball3.fwdbwd-frame": 3_145_728,
+              "bunny5.invert-spec": 2_359_296,
+              "hairball3.render-spec": 18_874_368,
+              "bunny5.render-pass": 18_874_368}
 
 
-@pytest.mark.parametrize("cell,rays", [
-    ("hairball3.fwdbwd-frame", 512 * 512 * 1 * 4 * 3),
-    ("bunny5.invert-spec", 2048 * 64 * 6 * 3),
-    ("hairball3.render-spec", 256 * 256 * 16 * 6 * 3),
-])
+def counted_rays(src, cell):
+    """Camera samples a unit x depth x rays a bounce casts, from the
+    cell's workload and configuration files."""
+    from perfbench.lib import harness
+    wl = workload(src, cell)
+    _, cfg = harness.Layout(src).config(wl["config"])
+    return (driver(src, wl["kind"]).samples_per_unit(wl) * wl["max_depth"]
+            * cfg["rays_per_bounce"])
+
+
+@pytest.mark.parametrize("cell,rays", [(c, counted_rays(ROOT, c))
+                                       for c in cells()])
 def test_counted_rays_per_unit(cell, rays):
     import torch
 
     from perfbench.lib import harness
     run = harness.Run(harness.Layout(ROOT), cell, 1, torch.device("cpu"))
-    assert run.rays_per_unit == rays
-    assert rays in (3_145_728, 2_359_296, 18_874_368)
+    assert run.rays_per_unit == rays == DOCUMENTED.get(cell, rays)
 
 
 @pytest.mark.parametrize("mods,found", [
@@ -45,9 +54,10 @@ def test_nothing_forbidden_after_a_run(runmod, tiny_root):
     assert harness.forbidden_modules(sys.modules) == []
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", cells())
 @pytest.mark.parametrize("trace", [0, 1])
 def test_tiny_run(runmod, tiny_root, cell, trace):
+    from perfbench.lib import harness
     out = run_tiny(runmod, tiny_root, cell, trace)
     assert list(out) == (["correct", "attempted", "failed", "metrics",
                           "device"] + (["breakdown"] if trace else [])
@@ -60,9 +70,11 @@ def test_tiny_run(runmod, tiny_root, cell, trace):
         assert {"busy_s", "window_s"} <= set(out["device"])
         assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
     else:
-        assert "setup_s" in names
-        assert ("render_mrays_s" if "render" in cell
-                else "fwdbwd_mrays_s") in names
+        e2e, _ = harness.Layout(tiny_root).metrics_of(cell)
+        assert {m["name"] for m in e2e} == names
+        assert "setup_s" in names and len(names) >= 2
+    limits = workload(tiny_root, cell)["limits"]
+    assert out["checks"] and set(out["checks"]) == set(limits)
     for c in out["checks"].values():
         assert c["value"] <= c["limit"]
 

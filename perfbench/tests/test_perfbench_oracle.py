@@ -1,15 +1,15 @@
 """The plain reference against the repository's float64 NumPy oracle
 (``oracle/``, written apart from the port): the hair and surface BSDFs
 and the environment map on random directions, the camera, and whole
-paths of both tiny scenes fed the same rays and uniforms. The reference
-runs in float64 here, so any gap beyond round-off is a difference of
-method, not of precision."""
+paths of every configuration's tiny scene fed the same rays and
+uniforms. The reference runs in float64 here, so any gap beyond
+round-off is a difference of method, not of precision."""
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, TINY_SCENES
+from conftest import bench, tiny_scene
 
 N = 4096
 
@@ -26,15 +26,6 @@ def _dirs(rng, n):
 def _rel(a, b):
     return float(np.abs(np.asarray(a) - b).max()
                  / max(np.abs(b).max(), 1e-30))
-
-
-def _scene(name):
-    from perfbench.lib import harness
-    cell = {"hairball3": "hairball3.render-spec",
-            "bunny5": "bunny5.invert-spec"}[name]
-    run = harness.Run(harness.Layout(ROOT), cell, 1, torch.device("cpu"))
-    run.config["generator"]["kwargs"] = TINY_SCENES[name]
-    return run.scene()
 
 
 def test_hair_bsdf_equals_the_oracle():
@@ -85,7 +76,7 @@ def test_env_map_equals_the_oracle():
 
     from perfbench.reference import bsdf
     from perfbench.reference import scene as rscene
-    image = _scene("bunny5")[0]["env_map"]
+    image = tiny_scene("bunny5")[0]["env_map"]
     ora = EnvMap(image)
     sc = SimpleNamespace(**dict(zip(
         ("env_map", "env_pmf", "env_cdf", "env_sin"),
@@ -108,7 +99,10 @@ def _round_segments(scene):
         for a in scene["segments"]))
 
 
-@pytest.mark.parametrize("name", ["hairball3", "bunny5"])
+CONFIGS = [c["name"] for c in bench()["configs"]]
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_paths_equal_the_oracle(name):
     """Every ray of a 24x24, 2-spp, depth-4 image, from the oracle's
     camera and one uniforms array: hair, the sphere, the bunny's
@@ -119,7 +113,7 @@ def test_paths_equal_the_oracle(name):
 
     from perfbench.reference import scene as rscene
     from perfbench.reference import tracer
-    scene, cam = _scene(name)
+    scene, cam = tiny_scene(name)
     res, spp, depth = 24, 2, 4
     rng = np.random.default_rng(3)
     u = rng.random((res * res * spp, opt.n_uniform_dims(depth)))

@@ -1,6 +1,7 @@
 """The readers of the program's own spans and counters
 (perfbench/lib/program.py): self-intervals, device time by launch
-time and idle overlap on a hand-built trace, and ``prepare``'s window."""
+time, idle overlap and the idle gaps by innermost span on a hand-built
+trace, and ``prepare``'s window."""
 
 import sys
 from types import SimpleNamespace
@@ -8,7 +9,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from conftest import ROOT, run_tiny
+from conftest import ROOT, cells, run_tiny
 
 from perfbench.lib import program, profiling
 
@@ -110,6 +111,19 @@ def _profile():
     return profiling.Profile(prof, 1.0, 1)
 
 
+def test_idle_gaps_by_innermost_span():
+    """Each idle gap of the device goes to the innermost yhair.* span
+    open at its middle, else to the innermost host range, else to none:
+    [0, 14] and [26, 41] and [89, 95] in the bounce, [18, 22] in the
+    list build, [250, 300] in the shading, [99, 240] between units."""
+    gaps = dict(_profile().idle_gaps())
+    want = {"(between host operations)": 141, "yhair.shading": 50,
+            "yhair.bounce": 14 + 15 + 6, "yhair.lists": 4}
+    assert list(gaps) == list(want)
+    for k, ns in want.items():
+        assert gaps[k] == pytest.approx(ns / 1e9)
+
+
 def test_readers_on_a_profile(capsys):
     import torch
     run = SimpleNamespace(
@@ -157,17 +171,29 @@ def test_prepare_without_the_programs_tracing(monkeypatch):
         cache=run.cache, unit_name="image"), "image") is None
 
 
-@pytest.mark.parametrize("cell", ["hairball3.fwdbwd-frame",
-                                  "hairball3.render-spec"])
+def live_share_cases(src=ROOT):
+    """(cell, metric) of each cell that reports a search_live_share."""
+    from perfbench.lib import harness
+    layout = harness.Layout(src)
+    return [(c, m["name"]) for c in cells(src)
+            for m in layout.metrics_of(c)[1]
+            if m["name"].startswith("search_live_share.")]
+
+
+CASES = live_share_cases()
+
+
+@pytest.mark.parametrize("cell", [c for c, _ in CASES])
 def test_traced_tiny_run_counts_the_lanes(runmod, tiny_root, cell):
     """A traced CPU run: the live share from the counters; no span
     metric, whose device numbers only a card gives; tracing off after."""
+    from perfbench.lib import harness
     from yhair_tpu_torch.utils import trace
     out = run_tiny(runmod, tiny_root, cell, trace=1)
-    kind = "render" if "render" in cell else "fwdbwd"
-    share = out["metrics"][f"search_live_share.{kind}"]["value"]
+    metric = dict(live_share_cases(tiny_root))[cell]
+    share = out["metrics"][metric]["value"]
     assert 0 < share < 100
-    assert f"shading_ms.{kind}" not in out["metrics"]
+    spans = [m["name"] for m in harness.Layout(tiny_root).metrics_of(cell)[1]
+             if m["source"] == "program_span"]
+    assert spans and not set(spans) & set(out["metrics"])
     assert not trace.enabled()
-    assert (ROOT / "perfbench" / "metrics"
-            / f"search_live_share.{kind}.py").exists()

@@ -8,15 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, TINY_SCENES, run_tiny
-
-
-def _scene(name="hairball3", kwargs=None):
-    from perfbench.lib import harness
-    run = harness.Run(harness.Layout(ROOT), "hairball3.render-spec", 1,
-                      torch.device("cpu"))
-    run.config["generator"]["kwargs"] = kwargs or TINY_SCENES[name]
-    return run.scene()
+from conftest import ROOT, cells, run_tiny, tiny_scene
 
 
 def _rays(n, seed=0, spread=0.6):
@@ -55,7 +47,7 @@ def _c(d2):
 def test_searches_equal_a_brute_force_scan():
     from perfbench.reference import scene as rscene
     from perfbench.reference import search
-    scene_d, _ = _scene()
+    scene_d, _ = tiny_scene("hairball3")
     sc = rscene.from_dict(scene_d, torch.device("cpu"))
     o, d = _rays(512)
     t, idx, hit = search.nearest(o, d, sc.groups)
@@ -78,7 +70,8 @@ def test_work_count_matches_the_programs_lists():
     from yhair_tpu_torch.ops import intersect_kernel as ik
 
     from perfbench.counts import work
-    scene_d, _ = _scene(kwargs={"n_strands": 600, "n_seg": 4, "seed": 11})
+    scene_d, _ = tiny_scene("hairball3", kwargs={
+        "n_strands": 600, "n_seg": 4, "seed": 11})
     sc, cl = build_scene_clusters(tscene.from_dict(scene_d, device="cpu"),
                                   device="cpu")
     o, d = _rays(1024, seed=3, spread=0.4)
@@ -104,9 +97,7 @@ def test_work_count_matches_the_programs_lists():
     assert work.peaks("NVIDIA H100 80GB HBM3") == (67e12, 3.35e12)
 
 
-@pytest.mark.parametrize("cell", ["hairball3.fwdbwd-frame",
-                                  "bunny5.invert-spec",
-                                  "hairball3.render-spec"])
+@pytest.mark.parametrize("cell", cells())
 def test_control_fails_the_limits(runmod, tiny_root, cell):
     """The reference in bfloat16, in the program's place, comes out not
     correct through a run's own verdict."""
@@ -116,9 +107,7 @@ def test_control_fails_the_limits(runmod, tiny_root, cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["hairball3.fwdbwd-frame",
-                                  "bunny5.invert-spec",
-                                  "hairball3.render-spec"])
+@pytest.mark.parametrize("cell", cells())
 def test_control_fails_the_limits_on_the_card(runmod, card, cell):
     """The same at the cell's own size, on the card (a one-unit
     window)."""
