@@ -35,7 +35,7 @@ torch.set_num_threads(1)
 RES, DEPTH = 32, 3
 PARAMS = ("beta_m", "beta_n", "sigma_a")
 COUNTERS = ("rays.bounce_lanes", "rays.bounce_live", "rays.shadow_lanes",
-            "rays.shadow_live")
+            "rays.shadow_live", "shade.live", "shade.hair")
 
 
 @pytest.fixture(scope="module")
@@ -237,6 +237,11 @@ def test_counters_equal_the_reference(hairball, tracing, sampler):
     assert got["rays.bounce_lanes"] == n * DEPTH
     assert got["rays.shadow_lanes"] == n * DEPTH * n_sh
     assert 0 < got["rays.bounce_live"] < got["rays.bounce_lanes"]
+    # the lanes shaded are the live ones after the hit test, and each
+    # casts one shadow ray a light
+    assert got["shade.live"] * n_sh == got["rays.shadow_live"]
+    assert 0 < got["shade.hair"] <= got["shade.live"]
+    assert got["shade.live"] < got["rays.bounce_live"]
 
 
 def test_lanes_equal_the_counted_rays(hairball, tracing):

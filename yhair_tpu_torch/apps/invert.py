@@ -22,6 +22,12 @@ every 20 steps and resumes from them, so a resumed run takes the steps
 an uninterrupted one would. Writes the recovered and true values, the
 last gradients and the loss of every step as JSON (from step 0, or from
 the resumed step where the checkpoint holds no losses).
+
+With --params ...,eumelanin,pheomelanin the true concentrations are the
+least-squares fit of the scene's sigma_a over its three channels (exact
+for a scene made from concentrations, as --config 4 is; a fit that
+leaves more than 1e-4 of sigma_a is reported), and the JSON adds the
+sigma_a the recovered concentrations imply (``sigma_a_implied``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..bsdf import hair as th
 from ..io import image as img_io
 from ..parallel import mesh
 from ..utils import checkpoint as ckpt
@@ -43,12 +50,30 @@ from .common import build_device_scene, load_scene, progressive_render
 
 # a checkpoint is saved after every this many steps
 CHECKPOINT_EVERY = 20
+# the concentrations' fit to the scene's sigma_a is reported beyond this
+# relative residual
+MELANIN_FIT = 1e-4
 
 
 def step_seed(seed: int, it: int) -> int:
     """Seed word of optimisation step ``it``: distinct from the target's
     (``key_seed(seed)``) and from every other step's."""
     return (mesh.key_seed(seed + 1) + 0x9E3779B1 * (it + 1)) & 0xFFFFFFFF
+
+
+def concentrations(sigma_a):
+    """Least-squares (eumelanin, pheomelanin) of sigma_a (..., 3) over
+    its three channels, in float64 -> (ce, cp, the largest residual
+    relative to its sigma_a's norm). Exact where sigma_a was made from
+    concentrations."""
+    a = np.stack([th.EUMELANIN, th.PHEOMELANIN], 1)
+    s = np.asarray(sigma_a, np.float64)
+    rows = s.reshape(-1, 3)
+    x = np.linalg.lstsq(a, rows.T, rcond=None)[0]
+    rel = np.linalg.norm(rows - (a @ x).T, axis=1) / np.maximum(
+        np.linalg.norm(rows, axis=1), 1e-30)
+    return (x[0].reshape(s.shape[:-1]), x[1].reshape(s.shape[:-1]),
+            float(rel.max()))
 
 
 def build_parser():
@@ -64,7 +89,10 @@ def build_parser():
     p.add_argument("--steps", type=int, default=60)
     p.add_argument("--lr", type=float, default=5e-2)
     p.add_argument("--params", default="beta_m,beta_n,sigma_a",
-                   help="comma list of hair params to optimize")
+                   help="comma list of hair params to optimize; "
+                        "eumelanin,pheomelanin (together, without sigma_a) "
+                        "optimize the melanin concentrations that give "
+                        "sigma_a")
     p.add_argument("--target", default=None,
                    help="target HDR image (.pfm/.exr/.hdr/.npy); default: "
                         "self-render")
@@ -109,7 +137,10 @@ def main(argv=None):
     if args.debug_nans:
         from ..utils.debug import enable_debug_nans
         enable_debug_nans()
-    sc, cam = build_device_scene(*load_scene(args), device=args.device)
+    names = [s.strip() for s in args.params.split(",") if s.strip()]
+    mesh.check_leaves(names)
+    scene_d, cam_d = load_scene(args)
+    sc, cam = build_device_scene(scene_d, cam_d, device=args.device)
     dev = sc.env.device
     res, spp, depth = args.resolution, args.spp, args.bounces
 
@@ -122,8 +153,18 @@ def main(argv=None):
             device=dev)
         print("rendered synthetic target from true parameters")
 
-    names = [s.strip() for s in args.params.split(",") if s.strip()]
-    true_vals = {k: getattr(sc.hair, k).cpu().numpy() for k in names}
+    true_vals = {k: getattr(sc.hair, k).cpu().numpy() for k in names
+                 if k not in mesh.MELANIN}
+    if mesh.MELANIN[0] in names:
+        # the scene's float64 sigma_a (rows of a per-shape table)
+        ms = scene_d.get("hair_materials")
+        sigma_a = np.asarray(np.stack([m["sigma_a"] for m in ms]) if ms
+                             else scene_d["hair_material"]["sigma_a"])
+        ce, cp, resid = concentrations(sigma_a)
+        true_vals.update(eumelanin=ce, pheomelanin=cp)
+        if resid > MELANIN_FIT:
+            print(f"the scene's sigma_a {sigma_a.tolist()} is no melanin "
+                  f"mix: the concentrations' fit leaves {resid:.3g} of it")
     params = convert.params_from_numpy(
         {k: true_vals[k] * args.init_scale for k in names}, device=dev)
     opt = torch.optim.Adam(params.values(), lr=args.lr)
@@ -204,6 +245,9 @@ def main(argv=None):
                         else {k: g.tolist() for k, g in grads.items()}),
         "steps": args.steps,
     }
+    if mesh.MELANIN[0] in names:
+        result["sigma_a_implied"] = th.sigma_a_from_concentration(
+            params["eumelanin"], params["pheomelanin"]).detach().tolist()
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     print(f"wrote {args.out}")

@@ -78,10 +78,10 @@ def _apply_edits(edits, sc, cam_d, tonemap):
             hair = hair._replace(sigma_a=f32(v))
         elif k == "color":
             hair = hair._replace(sigma_a=th.sigma_a_from_reflectance(
-                f32(v).cpu(), hair.beta_n.cpu()).to(dev))
+                f32(v), hair.beta_n))
         elif k == "melanin":
             hair = hair._replace(sigma_a=th.sigma_a_from_concentration(
-                float(v[0]), float(v[1])).to(dev))
+                f32(v[0]), f32(v[1])))
         elif k == "cam_from":
             cam_d["position"] = list(map(float, v))
         elif k == "cam_to":

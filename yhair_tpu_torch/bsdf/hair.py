@@ -157,11 +157,31 @@ def alpha_terms(alpha):
     return (s0, s1, s2), (c0, c1, c2)
 
 
+# absorption per unit concentration of eumelanin and pheomelanin (pbrt-v3
+# HairBSDF::SigmaAFromConcentration; Chiang et al. 2016)
+EUMELANIN = (0.419, 0.697, 1.37)
+PHEOMELANIN = (0.187, 0.4, 1.05)
+# (device, dtype) -> the two constant vectors there, made once: a copy
+# from the host to the card would synchronize it on every call
+_MELANIN = {}
+
+
 def sigma_a_from_concentration(ce, cp):
-    eumelanin = torch.tensor([0.419, 0.697, 1.37])
-    pheomelanin = torch.tensor([0.187, 0.4, 1.05])
-    ce = torch.as_tensor(ce, dtype=torch.float32)
-    cp = torch.as_tensor(cp, dtype=torch.float32)
+    """Melanin concentrations (..., ) -> absorption (..., 3). Floats and
+    arrays become float32; tensors keep their device, dtype and autograd
+    graph, and the constants follow them."""
+    like = ce if isinstance(ce, torch.Tensor) else cp
+    dev, dt = torch.device("cpu"), torch.float32
+    if isinstance(like, torch.Tensor):
+        dev = like.device
+        if like.is_floating_point():
+            dt = like.dtype
+    ce = torch.as_tensor(ce, dtype=dt, device=dev)
+    cp = torch.as_tensor(cp, dtype=dt, device=dev)
+    if (dev, dt) not in _MELANIN:
+        _MELANIN[dev, dt] = (torch.tensor(EUMELANIN, dtype=dt, device=dev),
+                             torch.tensor(PHEOMELANIN, dtype=dt, device=dev))
+    eumelanin, pheomelanin = _MELANIN[dev, dt]
     return ce[..., None] * eumelanin + cp[..., None] * pheomelanin
 
 

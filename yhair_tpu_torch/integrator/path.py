@@ -503,6 +503,10 @@ def _shade(scene: Scene, hs: Hit, o, d, ub, depth, path, perm, chunk,
                             beta * env_eval(scene, d) * w[:, None], 0.0)
     alive = alive & hs.hit
     is_hair, fx, fy, fz = _shading_frame(hs, d)
+    if tracing.enabled():
+        # the lanes shaded, and those whose BSDF reads the hair material
+        tracing.add("shade.live", alive.sum())
+        tracing.add("shade.hair", (alive & is_hair).sum())
     # soft silhouettes: pass_th lanes go on through the strand
     pass_th = torch.zeros_like(alive)
     if edge_softness:
@@ -661,7 +665,9 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
     With tracing on (``utils.trace``), each bounce adds its lanes and
     live lanes, for its nearest search (``rays.bounce_lanes``,
     ``rays.bounce_live``) and its shadow searches
-    (``rays.shadow_lanes``, ``rays.shadow_live``).
+    (``rays.shadow_lanes``, ``rays.shadow_live``), and the live lanes
+    it shades (``shade.live``) and of those the lanes on hair
+    (``shade.hair``).
     """
     if sampler not in ("path", "naive", "eyelight"):
         raise ValueError(f"unknown sampler {sampler!r}")

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..bsdf import hair as th
 from ..core.rng import n_uniform_dims
 from ..device import resolve_device
 from ..utils import debug, trace
@@ -44,7 +45,36 @@ PARAM_BOUNDS = {
     "alpha": (0.0, 0.2),
     "sigma_a": (0.0, 20.0),
     "eta": (1.0, 2.0),
+    # melanin concentrations: at both upper bounds the implied sigma_a is
+    # at most 10 * 1.37 + 5 * 1.05 = 18.95, inside sigma_a's own bounds
+    "eumelanin": (0.0, 10.0),
+    "pheomelanin": (0.0, 5.0),
 }
+# leaves that together give the scene's sigma_a in place of a field
+MELANIN = ("eumelanin", "pheomelanin")
+
+
+def check_leaves(names):
+    """Raise ValueError where the leaf names cannot set the hair: one
+    melanin concentration without the other, or both beside sigma_a."""
+    given = [k for k in MELANIN if k in names]
+    if given and len(given) < len(MELANIN):
+        raise ValueError("eumelanin and pheomelanin are leaves together: "
+                         f"got only {given[0]}")
+    if given and "sigma_a" in names:
+        raise ValueError("sigma_a comes from eumelanin and pheomelanin: "
+                         "it cannot be a leaf beside them")
+
+
+def hair_with(hair, params):
+    """The hair material with the leaves in place: each leaf replaces the
+    field of its name, and eumelanin and pheomelanin replace sigma_a by
+    ``sigma_a_from_concentration``, under autograd."""
+    fields = {k: v for k, v in params.items() if k not in MELANIN}
+    if MELANIN[0] in params:
+        fields["sigma_a"] = th.sigma_a_from_concentration(
+            params["eumelanin"], params["pheomelanin"])
+    return hair._replace(**fields)
 
 
 def tile_pixel_permutation(width, height, tile_w=TILE_W, tile_h=TILE_H):
@@ -237,7 +267,13 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
 
     params: {name: leaf tensor with requires_grad} of ``HairMaterial``
     fields, which replace the scene's (scalar or (3,) leaves, or rows of
-    a per-shape table: (Mh,) / (Mh, 3)); opt: a ``torch.optim`` optimizer
+    a per-shape table: (Mh,) / (Mh, 3)), or the melanin concentrations
+    ``eumelanin`` and ``pheomelanin`` together and without ``sigma_a``
+    (``check_leaves``), scalars or (Mh,) rows, which replace sigma_a by
+    ``sigma_a_from_concentration`` (``hair_with``, in a
+    ``yhair.params`` span before each strip: a strip's backward frees
+    the map's graph). The concentration leaves widen the reference,
+    whose step takes ``HairMaterial`` fields alone; opt: a ``torch.optim`` optimizer
     over those leaves (``torch.optim.Adam(lr)`` is optax's ``adam(lr)``);
     target: (H, W, 3). The loss is the mean squared error of the pixel
     means against the target. Each strip calls ``backward`` on its share
@@ -276,6 +312,7 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
     all_pixels = torch.as_tensor(perm, device=dev)
 
     def step(params, opt, scene, cam, target, seed_word, generator=None):
+        check_leaves(params)
         with trace.span("yhair.step"):
             if pixel_batch is None:
                 pixels = all_pixels
@@ -287,7 +324,6 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
                                    pixel_batch // tile_px, generator)
                 pixels = all_pixels.reshape(-1, tile_px)[tiles.to(dev)]
                 pixels = pixels.reshape(-1)
-            sc = scene._replace(hair=scene.hair._replace(**params))
             tgt = target.to(dev).reshape(-1, 3)
             n = pixels.numel() * 3
             for p in params.values():
@@ -295,6 +331,8 @@ def train_step_fn(width, height, spp, max_depth=6, chunk=2048,
             loss = torch.zeros((), device=dev)
             mine = pixels[_share(pixels.numel(), group)]
             for sl in pixel_strips(mine.numel(), spp):
+                with trace.span("yhair.params"):
+                    sc = scene._replace(hair=hair_with(scene.hair, params))
                 img = pixel_means(sc, cam, width, height, mine[sl], spp,
                                   seed_word, max_depth, chunk, edge_softness,
                                   dev)
