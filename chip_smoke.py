@@ -76,6 +76,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             bit-equal to its plain version, with the count of blocks
             sent as the "scan every cluster" sentinel (lists longer
             than MAX_IDS).
+    triangles5  every triangle search of that strip (each bounce's
+            nearest search through ``tri_hit_kernel``, its point-light
+            and env-map shadow rays through ``tri_any_kernel``) held
+            bit-equal to the plain twin ``geometry/triangles._search``,
+            and timed (CUDA events x5) beside the twin and the bound.
 12. main5   config 5's frame (1024x1024, 1 spp, depth 6, 16 strips)
             through ``progressive_render``, launch counts set to 0 just
             before and read just after.
@@ -308,6 +313,37 @@ class Recorder:
          ik._block_cluster_lists) = self.orig
 
 
+class TriRecorder:
+    """Wraps the triangle searches of ``geometry.triangles`` (``search``,
+    which ``nearest_hit`` calls, and ``occluded``) for the span of a
+    ``with``, keeping every call's inputs and outputs. Launches still go
+    through the wrappers."""
+
+    def __init__(self):
+        self.hit, self.any = [], []
+
+    def __enter__(self):
+        from yhair_tpu_torch.geometry import triangles as tri
+        self.orig = (tri.search, tri.occluded)
+        search, occluded = self.orig
+
+        def rec_search(o, d, tris, t_min=1e-4, t_max=tri.INF, chunk=2048):
+            out = search(o, d, tris, t_min, t_max, chunk)
+            self.hit.append(((o, d, tris, t_min, t_max, chunk), out))
+            return out
+
+        def rec_occluded(o, d, dist, tris, t_min=1e-4, chunk=2048):
+            out = occluded(o, d, dist, tris, t_min, chunk)
+            self.any.append(((o, d, dist, tris, t_min, chunk), out))
+            return out
+        tri.search, tri.occluded = rec_search, rec_occluded
+        return self
+
+    def __exit__(self, *exc):
+        from yhair_tpu_torch.geometry import triangles as tri
+        tri.search, tri.occluded = self.orig
+
+
 def timed(fn, reps=1):
     """(last result, mean device ms) of reps calls of fn on the current
     stream, between two CUDA events."""
@@ -530,6 +566,64 @@ def hold_lists(st, args, out, phase):
     st["plain_ms"] += ms_plain
 
 
+def occlusion_tests(o, d, dist, tris, t_min):
+    """Ray-triangle tests a walk over the triangles in index order needs
+    until each ray is occluded (all of them where it is not)."""
+    import torch
+
+    from yhair_tpu_torch.geometry import triangles as tri
+
+    n_tri, limit, total = tris.n_triangles, dist * (1.0 - 1e-4), 0
+    for lo in range(0, o.shape[0], tri.RAY_CHUNK):
+        hi = lo + tri.RAY_CHUNK
+        t, _, _ = tri._mt_hit(o[lo:hi, None], d[lo:hi, None], tris.v0[None],
+                              tris.v1[None], tris.v2[None], t_min, tri.INF)
+        occ = t < limit[lo:hi, None]
+        first = torch.where(occ.any(1), occ.int().argmax(1) + 1, n_tri)
+        total += int(first.sum())
+    return total
+
+
+def hold_tri(st, kind, args, out, phase):
+    """One recorded triangle search ("hit": ``search``, "any":
+    ``occluded``) against the plain twin ``_search`` (bit-equal t and
+    idx, or occlusion), then timed (CUDA events x5). The bound: the
+    ray-triangle tests the search needs (every pair for the nearest hit;
+    up to each ray's first occluder for occlusion) of FLOP_PER_TEST
+    operations over the FP32 peak, against the inputs read once and the
+    outputs written once over HBM's rate."""
+    import torch
+
+    from yhair_tpu_torch.geometry import triangles as tri
+
+    if kind == "hit":
+        o, d, tris = args[:3]
+        plain, ms_plain = timed(lambda: tri._search(*args))
+        for name, a, b in zip(("t", "idx"), out, plain):
+            require(torch.equal(a, b), phase,
+                    f"triangle hit kernel {name} differs from the twin "
+                    f"({int((a != b).sum())} rays)")
+        _, ms = timed(lambda: tri.search(*args), 5)
+        tests = o.shape[0] * tris.n_triangles
+        n_bytes = nbytes(o, d, tris.v0, tris.v1, tris.v2, *out)
+    else:
+        o, d, dist, tris, t_min, chunk = args
+        (least, _), ms_plain = timed(lambda: tri._search(
+            o, d, tris, t_min, tri.INF, chunk))
+        plain = least < dist * (1.0 - 1e-4)
+        require(torch.equal(out, plain), phase,
+                f"triangle any kernel differs from the twin "
+                f"({int((out != plain).sum())} rays)")
+        _, ms = timed(lambda: tri.occluded(*args), 5)
+        tests = occlusion_tests(o, d, dist, tris, t_min)
+        n_bytes = nbytes(o, d, dist, tris.v0, tris.v1, tris.v2, out)
+    add_bound(st, tests * FLOP_PER_TEST / FP32_PEAK * 1e3,
+              n_bytes / HBM_BYTES_S * 1e3)
+    st["tests"] = st.get("tests", 0) + tests
+    st["ms"] += ms
+    st["plain_ms"] += ms_plain
+
+
 def per_launch(st):
     """Turn st's sums into means per compared launch; name the bound."""
     n = max(st["launches"], 1)
@@ -621,6 +715,47 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     return hit_stats, any_stats, lists_stats
 
 
+def phase_triangles(sc, cam, dev, width, height, depth, strip,
+                    phase="triangles5"):
+    """Every triangle search of one strip (the nearest searches and the
+    shadow rays of every bounce) against the plain twin, bit for bit,
+    and timed. -> (hit stats, any stats), as ``phase_kernels``'s."""
+    import torch
+
+    from yhair_tpu_torch.ops import _cuda
+    from yhair_tpu_torch.parallel import mesh
+
+    pid = strip_pixels(width, height, strip, dev)
+    with TriRecorder() as rec:
+        img = mesh.trace_pixels(sc, cam, width, height, pid,
+                                torch.zeros_like(pid), mesh.key_seed(0),
+                                depth, device=dev)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(img).all()), phase, "strip not finite")
+    require(len(rec.hit) == depth and len(rec.any) > 0, phase,
+            f"{len(rec.hit)} nearest and {len(rec.any)} shadow searches "
+            f"over the triangles at depth {depth}")
+    hit_st, any_st = new_stats(len(rec.hit)), new_stats(len(rec.any))
+    for args, out in rec.hit:
+        hold_tri(hit_st, "hit", args, out, phase)
+    for args, out in rec.any:
+        hold_tri(any_st, "any", args, out, phase)
+    tests = {k: st["tests"] / st["launches"]
+             for k, st in (("tri_hit", hit_st), ("tri_any", any_st))}
+    for st in (hit_st, any_st):
+        per_launch(st)
+    emit(phase=phase, ok=True, strip_rays=STRIP, depth=depth,
+         strip_index=strip, triangles=sc.n_triangles,
+         lanes=_cuda.library().yhair_tri_lanes(STRIP, sc.n_triangles),
+         hit_launches=hit_st["launches"], any_launches=any_st["launches"],
+         kernel_vs_plain="bit-equal", tests_per_launch=tests,
+         per_launch_ms={k: {f: st[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "ops_ms", "bytes_ms")}
+                        for k, st in (("tri_hit", hit_st),
+                                      ("tri_any", any_st))})
+    return hit_st, any_st
+
+
 def shadow_rays_per_bounce(sc):
     """Shadow rays the integrator casts for each live bounce ray: one per
     point light, one for the environment map, one for the area lights."""
@@ -637,11 +772,11 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     import torch
 
     from yhair_tpu_torch.apps import render as app
+    from yhair_tpu_torch.geometry import triangles as tri
     from yhair_tpu_torch.ops import intersect_kernel as ik
     from yhair_tpu_torch.utils import trace
 
-    for k in ik.LAUNCHES:
-        ik.LAUNCHES[k] = 0
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trace.reset()
@@ -661,6 +796,13 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
             phase, "image not finite or of the wrong shape")
     require(all(n > 0 for n in launches.values()), phase,
             f"a kernel was not launched on the main path: {launches}")
+    if sc.n_triangles:
+        # every ray searched against the triangles went to a kernel
+        launches.update(tri.LAUNCHES)
+        require(all(tri.LAUNCHES.values())
+                and counts["tri.rays_kernel"] == counts["tri.rays"], phase,
+                f"triangle searches not all on the kernels: {launches}, "
+                f"{counts['tri.rays_kernel']} of {counts['tri.rays']} rays")
     n_rays = width * height * SPP
     rays = n_rays * depth * (1 + shadow_rays_per_bounce(sc))
     lanes = counts["rays.bounce_lanes"] + counts["rays.shadow_lanes"]
@@ -863,9 +1005,11 @@ def phase_golden(sc, cam, dev):
 
 
 def zero_launches():
+    from yhair_tpu_torch.geometry import triangles as tri
     from yhair_tpu_torch.ops import intersect_kernel as ik
-    for k in ik.LAUNCHES:
-        ik.LAUNCHES[k] = 0
+    for counts in (ik.LAUNCHES, tri.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_launches(phase):
@@ -2073,6 +2217,8 @@ def main(argv=None):
     strip5 = W5 * H5 // STRIP // 2      # the strip through the centre
     hit5, any5, lists5 = phase_kernels(sc5, cam5, dev, W5, H5, DEPTH5,
                                        strip5, phase="kernels5")
+    tri_hit5, tri_any5 = phase_triangles(sc5, cam5, dev, W5, H5, DEPTH5,
+                                         strip5)
     launches5, img5, _ = phase_main(sc5, cam5, dev, W5, H5, DEPTH5,
                                     phase="main5")
     phase_train5(sc5, cam5, dev)
@@ -2117,6 +2263,14 @@ def main(argv=None):
             kernel_record("any_kernel" + suffix,
                           "yhair_tpu/ops/intersect_kernel.py:316", stats[1],
                           lc["any_kernel"], path)]
+    records += [
+        kernel_record(name + " (config 5)",
+                      f"none (yhair_tpu/geometry/triangles.py:{fn} is jnp "
+                      "left to XLA)", st, launches5[name],
+                      "config 5, furry bunny")
+        for name, fn, st in (
+                ("tri_hit_kernel", "135 nearest_hit", tri_hit5),
+                ("tri_any_kernel", "171 occluded", tri_any5))]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

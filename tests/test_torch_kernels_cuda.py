@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_triangle_search as tts
 from scenes import generators as gen
 from yhair_tpu_torch.core import scene as tscene
+from yhair_tpu_torch.geometry import triangles as tri
 from yhair_tpu_torch.ops import build_scene_clusters
 from yhair_tpu_torch.ops import intersect_kernel as ik
 
@@ -644,3 +646,55 @@ def test_lists_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             ik._block_cluster_lists(o_, d_, cl_, t_max=t_)
     assert ik.LAUNCHES["lists_kernel"] == before
+
+
+# ---------------------------------------------------------------------------
+# tri_hit_kernel and tri_any_kernel: the triangle search
+
+
+@pytest.mark.parametrize("case", tts.SEARCH_CASES)
+def test_triangle_kernels_match_the_twin(cuda, case):
+    """search (one tri_hit_kernel launch) and occluded (one tri_any_kernel
+    launch) on each case of the CPU contract test (random soups of 1, 800
+    and 5,000 triangles, 1 ray and counts that are no multiple of a
+    block, no triangles, duplicated and coplanar ties, bounds at t,
+    degenerate triangles, lanes at 1e8, dist at INF) equal the plain twin
+    ``_search`` run on the card bit for bit: t, idx and occlusion."""
+    inp = tts.case_inputs(case)
+    o, d, tris, dist = tts.torch_inputs(inp, cuda)
+    t_min, t_max, chunk = inp["t_min"], inp["t_max"], inp["chunk"]
+    before = dict(tri.LAUNCHES)
+    t, idx = tri.search(o, d, tris, t_min, t_max, chunk)
+    occ = tri.occluded(o, d, dist, tris, t_min, chunk)
+    torch.cuda.synchronize()
+    assert tri.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want_t, want_i = tri._search(o, d, tris, t_min, t_max, chunk)
+    least, _ = tri._search(o, d, tris, t_min, tri.INF, chunk)
+    assert torch.equal(t, want_t) and torch.equal(idx, want_i)
+    assert torch.equal(occ, least < dist * (1.0 - 1e-4))
+
+
+def test_triangle_kernels_on_a_config5_strip(cuda):
+    """Config 5 (the furry bunny's 800 triangles) on the card: every
+    triangle search of the 65,536-ray strip through the centre of its
+    1024x1024 frame at depth 2 (the camera rays' and the bounce's nearest
+    searches, the point-light and env-map shadow rays) bit-equal to the
+    plain twin (``chip_smoke.phase_triangles``, which fails the run
+    otherwise); the kernels searched every ray the counters saw."""
+    import chip_smoke
+    from yhair_tpu_torch.apps import common
+    from yhair_tpu_torch.utils import trace
+
+    sc, cam, *_ = common.load_config(5, device=cuda)
+    assert sc.n_triangles == 800
+    trace.reset()
+    trace.enable()
+    try:
+        hit, anyk = chip_smoke.phase_triangles(
+            sc, cam, cuda, 1024, 1024, 2, 1024 * 1024 // chip_smoke.STRIP // 2)
+        counts = trace.counters()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert hit["launches"] == 2 and anyk["launches"] == 4
+    assert counts["tri.rays_kernel"] == counts["tri.rays"] > 0

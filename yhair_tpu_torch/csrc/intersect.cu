@@ -1,4 +1,6 @@
-// Ray - hair-cluster intersection kernels for NVIDIA Hopper (sm_90a).
+// Ray - hair-cluster intersection kernels for NVIDIA Hopper (sm_90a),
+// and after them the ray - triangle search (tri_hit_kernel and
+// tri_any_kernel, with a note of their own).
 //
 // A search has two phases: lists_kernel builds each 128-ray block's
 // front-to-back list of the clusters its rays enter (phase 1, at the end
@@ -705,6 +707,232 @@ lists_kernel(const float* __restrict__ o, const float* __restrict__ d,
     ids[row + i] = static_cast<int>(pairs[i] & 0xffffffffu);
 }
 
+// ---------------------------------------------------------------------------
+// The triangle search: tri_hit_kernel and tri_any_kernel
+//
+// They replace no Pallas kernel: the JAX package's triangle search
+// (yhair_tpu/geometry/triangles.py:nearest_hit, a lax.scan of jnp
+// Moller-Trumbore over triangle chunks) is left to XLA, and the port's
+// plain twin (geometry/triangles.py:_search) runs it as some 40 torch
+// ops over (8,192 rays, 2,048 triangles) temporaries in device memory.
+// tri_hit_kernel serves nearest_hit: per ray the least t over the
+// triangles whose test passes, or NO_HIT, and the first triangle at that
+// t (0 where none). tri_any_kernel serves occluded: least t < limit =
+// dist * (1 - 1e-4); a ray stops at its first valid t under its limit,
+// which is the same answer, since the least valid t lies under the limit
+// exactly when some valid t does.
+//
+// What bounds them on an H100: about 55 FP32 operations a (ray,
+// triangle) test and no bytes beyond the rays, the triangles and one
+// result a ray, so rays x triangles x 55 / (67 TFLOP/s). The design
+// keeps every temporary in registers: a CTA stages a tile of up to
+// TRI_TILE triangles in shared memory (v0, e1 = v1 - v0, e2 = v2 - v0,
+// rounded as the twin rounds them, packed into two float4 arrays and a
+// float array, so a test reads them with three loads and neighbouring
+// threads read neighbouring words), and each ray lives in the registers
+// of `lanes` neighbouring threads of a warp, each testing every
+// lanes-th triangle of the tile. lanes grows (a power of two up to 32)
+// while the rays alone would leave the card's SMs short of threads and
+// each lane keeps at least TRI_MIN_PER_LANE triangles: a bunny5 strip's
+// 65,536 rays over 800 triangles take 4. The lanes of a ray merge
+// (least t, then least index) with warp shuffles.
+//
+// Exactness: the twin's _mt, operation for operation as ATen computes
+// it on the card. The cross products are ATen's cross kernel, whose
+// a[j] * b[k] - a[k] * b[j] nvcc contracts into one fused multiply-add
+// of the first product with the rounded second (cross3); the three-term
+// sums are ATen's sum over a last dimension of 3, which two threads
+// share, so element 1 is added last (dot3); the reciprocal is IEEE, its
+// product with 1.0 exact. Both orders were read from the card against
+// the twin (PERF.md). So t, idx and occlusion equal the twin's bit for
+// bit, ties and misses included.
+
+constexpr int TRI_THREADS = 256;
+constexpr int TRI_TILE = 1024;         // triangles a tile (36 KB)
+constexpr int TRI_MIN_PER_LANE = 16;   // least triangles a lane
+constexpr int TRI_THREADS_PER_SM = 1024;  // threads to aim for on an SM
+constexpr float TRI_EPS = 1e-12f;
+// 1 - 1e-4 as the twin's float32 multiply takes it
+constexpr float TRI_LIMIT_SCALE = static_cast<float>(1.0 - 1e-4);
+
+struct TriTile {
+  float4 a[TRI_TILE];  // v0.xyz, e1.x
+  float4 b[TRI_TILE];  // e1.yz, e2.xy
+  float c[TRI_TILE];   // e2.z
+};
+
+// triangles base .. base + m - 1 into the tile; the caller syncs
+__device__ __forceinline__ void stage_triangles(
+    TriTile& s, const float* __restrict__ v0, const float* __restrict__ v1,
+    const float* __restrict__ v2, int base, int m) {
+  for (int k = threadIdx.x; k < m; k += TRI_THREADS) {
+    const size_t j = 3 * static_cast<size_t>(base + k);
+    float a[3], e1[3], e2[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      a[ax] = v0[j + ax];
+      e1[ax] = v1[j + ax] - a[ax];
+      e2[ax] = v2[j + ax] - a[ax];
+    }
+    s.a[k] = make_float4(a[0], a[1], a[2], e1[0]);
+    s.b[k] = make_float4(e1[1], e1[2], e2[0], e2[1]);
+    s.c[k] = e2[2];
+  }
+}
+
+// ATen's cross kernel on the card: r[i] = fma(a[j], b[k], -(a[k] * b[j]))
+__device__ __forceinline__ void cross3(const float a[3], const float b[3],
+                                       float r[3]) {
+  r[0] = __fmaf_rn(a[1], b[2], -__fmul_rn(a[2], b[1]));
+  r[1] = __fmaf_rn(a[2], b[0], -__fmul_rn(a[0], b[2]));
+  r[2] = __fmaf_rn(a[0], b[1], -__fmul_rn(a[1], b[0]));
+}
+
+// ATen's (a * b).sum(-1) over 3 on the card: (p0 + p2) + p1
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return (a[0] * b[0] + a[2] * b[2]) + a[1] * b[1];
+}
+
+// _mt_hit of ray (o, d) and staged triangle k: t where the test passes,
+// else NO_HIT
+__device__ __forceinline__ float tri_test(const TriTile& s, int k,
+                                          const float o[3], const float d[3],
+                                          float t_min, float t_max) {
+  const float4 a = s.a[k], b = s.b[k];
+  const float v0[3] = {a.x, a.y, a.z}, e1[3] = {a.w, b.x, b.y},
+              e2[3] = {b.z, b.w, s.c[k]};
+  float pv[3], tv[3], qv[3];
+  cross3(d, e2, pv);
+  const float det = dot3(e1, pv);
+  const float inv = __frcp_rn(fabsf(det) < TRI_EPS ? TRI_EPS : det);
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) tv[ax] = o[ax] - v0[ax];
+  const float u = dot3(tv, pv) * inv;
+  cross3(tv, e1, qv);
+  const float v = dot3(d, qv) * inv;
+  const float t = dot3(e2, qv) * inv;
+  const bool ok = fabsf(det) > TRI_EPS && u >= 0.0f && v >= 0.0f &&
+                  u + v <= 1.0f && t > t_min && t < t_max;
+  return ok ? t : NO_HIT;
+}
+
+// this thread's ray (clamped to the last one past n) and its lane
+struct TriRay {
+  float o[3], d[3];
+  int r, g;
+  bool live;
+};
+
+__device__ __forceinline__ TriRay tri_ray(const float* __restrict__ o,
+                                          const float* __restrict__ d,
+                                          int n, int lanes) {
+  TriRay ray;
+  ray.r = blockIdx.x * (TRI_THREADS / lanes) + threadIdx.x / lanes;
+  ray.g = threadIdx.x & (lanes - 1);
+  ray.live = ray.r < n;
+  const size_t r = 3 * static_cast<size_t>(ray.live ? ray.r : n - 1);
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    ray.o[ax] = o[r + ax];
+    ray.d[ax] = d[r + ax];
+  }
+  return ray;
+}
+
+__global__ void __launch_bounds__(TRI_THREADS)
+tri_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
+               const float* __restrict__ v0, const float* __restrict__ v1,
+               const float* __restrict__ v2, int n, int n_tri, int lanes,
+               float t_min, float t_max, float* __restrict__ t_out,
+               long long* __restrict__ idx_out) {
+  __shared__ TriTile s;
+  const TriRay ray = tri_ray(o, d, n, lanes);
+  // each lane walks its triangles in index order, so the strict minimum
+  // keeps the first of equal t
+  float best = NO_HIT;
+  int best_i = 0;
+  for (int base = 0; base < n_tri; base += TRI_TILE) {
+    const int m = min(TRI_TILE, n_tri - base);
+    __syncthreads();
+    stage_triangles(s, v0, v1, v2, base, m);
+    __syncthreads();
+    for (int k = ray.g; k < m; k += lanes) {
+      const float t = tri_test(s, k, ray.o, ray.d, t_min, t_max);
+      if (t < best) {
+        best = t;
+        best_i = base + k;
+      }
+    }
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
+    const float t = __shfl_xor_sync(0xffffffffu, best, off);
+    const int i = __shfl_xor_sync(0xffffffffu, best_i, off);
+    if (t < best || (t == best && i < best_i)) {
+      best = t;
+      best_i = i;
+    }
+  }
+  if (ray.live && ray.g == 0) {
+    t_out[ray.r] = best;
+    idx_out[ray.r] = best_i;
+  }
+}
+
+// whether any lane of this thread's ray has occ set (every lane of a
+// warp calls it)
+__device__ __forceinline__ bool ray_any(bool occ, int lanes) {
+  const unsigned votes = __ballot_sync(0xffffffffu, occ);
+  const unsigned group = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1;
+  return (votes >> ((threadIdx.x & 31) & ~(lanes - 1))) & group;
+}
+
+__global__ void __launch_bounds__(TRI_THREADS)
+tri_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
+               const float* __restrict__ dist, const float* __restrict__ v0,
+               const float* __restrict__ v1, const float* __restrict__ v2,
+               int n, int n_tri, int lanes, float t_min,
+               bool* __restrict__ occ_out) {
+  __shared__ TriTile s;
+  const TriRay ray = tri_ray(o, d, n, lanes);
+  const float limit = dist[ray.live ? ray.r : n - 1] * TRI_LIMIT_SCALE;
+  // the twin's least t is NO_HIT where no test passes; the lanes past n
+  // count as decided
+  bool occ = !ray.live || NO_HIT < limit;
+  for (int base = 0; base < n_tri; base += TRI_TILE) {
+    // the barrier before the tile is overwritten; the CTA stops once
+    // every ray is decided
+    if (__syncthreads_and(ray_any(occ, lanes))) break;
+    const int m = min(TRI_TILE, n_tri - base);
+    stage_triangles(s, v0, v1, v2, base, m);
+    __syncthreads();
+    // every thread of a warp runs the same steps and votes in each
+    for (int k0 = 0; k0 < m; k0 += lanes) {
+      const bool done = ray_any(occ, lanes);
+      if (__all_sync(0xffffffffu, done)) break;
+      const int k = k0 + ray.g;
+      if (!done && k < m)
+        occ = tri_test(s, k, ray.o, ray.d, t_min, NO_HIT) < limit;
+    }
+  }
+  const bool any = ray_any(occ, lanes);
+  if (ray.live && ray.g == 0) occ_out[ray.r] = any;
+}
+
+// threads a ray for n rays over n_tri triangles on the current device
+int tri_lanes(int n, int n_tri) {
+  static const int target = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms * TRI_THREADS_PER_SM;
+  }();
+  int lanes = 1;
+  while (lanes < 32 && static_cast<long long>(n) * lanes < target &&
+         n_tri >= 2 * lanes * TRI_MIN_PER_LANE)
+    lanes <<= 1;
+  return lanes;
+}
+
 // CTAs of `kernel` that fit on the current device at once
 template <typename F>
 int persistent_grid(F kernel) {
@@ -799,4 +1027,40 @@ extern "C" int yhair_block_lists(const float* o, const float* d,
       o, d, cmin, cmax, t_max, exclude, n_clusters, sort_cap, nullptr, ids,
       counts, key);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The triangle search over n rays (o, d: (n, 3)) and n_tri triangles (v0,
+// v1, v2: (n_tri, 3)). t_out (n,): the least t in (t_min, t_max) or
+// NO_HIT; idx_out (n,): the first triangle at that t, 0 where none.
+extern "C" int yhair_tri_hit(const float* o, const float* d, const float* v0,
+                             const float* v1, const float* v2, int n,
+                             int n_tri, float t_min, float t_max,
+                             float* t_out, long long* idx_out,
+                             void* stream) {
+  if (n == 0) return 0;
+  const int lanes = tri_lanes(n, n_tri), rays = TRI_THREADS / lanes;
+  tri_hit_kernel<<<(n + rays - 1) / rays, TRI_THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      o, d, v0, v1, v2, n, n_tri, lanes, t_min, t_max, t_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// occ_out (n,): whether the least t over the triangles in (t_min, NO_HIT),
+// or NO_HIT where there is none, lies below dist * (1 - 1e-4).
+extern "C" int yhair_tri_any(const float* o, const float* d,
+                             const float* dist, const float* v0,
+                             const float* v1, const float* v2, int n,
+                             int n_tri, float t_min, bool* occ_out,
+                             void* stream) {
+  if (n == 0) return 0;
+  const int lanes = tri_lanes(n, n_tri), rays = TRI_THREADS / lanes;
+  tri_any_kernel<<<(n + rays - 1) / rays, TRI_THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      o, d, dist, v0, v1, v2, n, n_tri, lanes, t_min, occ_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the threads a ray that both triangle kernels take for these sizes
+extern "C" int yhair_tri_lanes(int n, int n_tri) {
+  return tri_lanes(n, n_tri);
 }

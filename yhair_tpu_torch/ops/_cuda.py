@@ -68,4 +68,11 @@ def library() -> ctypes.CDLL:
     lib.yhair_block_lists.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p, p,
                                       p]
     lib.yhair_block_lists.restype = i
+    f = ctypes.c_float
+    lib.yhair_tri_hit.argtypes = [p, p, p, p, p, i, i, f, f, p, p, p]
+    lib.yhair_tri_hit.restype = i
+    lib.yhair_tri_any.argtypes = [p, p, p, p, p, p, i, i, f, p, p]
+    lib.yhair_tri_any.restype = i
+    lib.yhair_tri_lanes.argtypes = [i, i]
+    lib.yhair_tri_lanes.restype = i
     return lib
