@@ -190,6 +190,9 @@ FLOP_PER_SLAB = 28
 WIDTH = HEIGHT = 512
 SPP, DEPTH, STRIP = 1, 4, 65536
 GOLDEN_MEAN_RTOL, GOLDEN_P99_RTOL = 0.01, 0.03
+# the LAUNCHES keys of the cluster search and of the triangle search
+CLUSTER_KERNELS = ("lists_kernel", "hit_kernel", "any_kernel")
+TRIANGLE_KERNELS = ("tri_hit_kernel", "tri_any_kernel")
 # bench.py differentiates with respect to these
 TRAIN_PARAMS = ("beta_m", "beta_n", "sigma_a")
 FD_EPS, FD_RTOL = 1e-3, 0.02
@@ -389,11 +392,11 @@ def ptxas_lines(log):
 
 
 def phase_build():
+    from yhair_tpu_torch import kernels
     from yhair_tpu_torch.accel import native
-    from yhair_tpu_torch.ops import _cuda
     t0 = time.time()
-    lib, log = _cuda.build()
-    _cuda.library()
+    lib, log = kernels.build()
+    kernels.library()
     # the scene builds take the native cluster builder (g++): a failed
     # build raises here, and a missing g++ fails the phase
     native_lib = native.build()
@@ -722,7 +725,7 @@ def phase_triangles(sc, cam, dev, width, height, depth, strip,
     and timed. -> (hit stats, any stats), as ``phase_kernels``'s."""
     import torch
 
-    from yhair_tpu_torch.ops import _cuda
+    from yhair_tpu_torch import kernels
     from yhair_tpu_torch.parallel import mesh
 
     pid = strip_pixels(width, height, strip, dev)
@@ -746,7 +749,7 @@ def phase_triangles(sc, cam, dev, width, height, depth, strip,
         per_launch(st)
     emit(phase=phase, ok=True, strip_rays=STRIP, depth=depth,
          strip_index=strip, triangles=sc.n_triangles,
-         lanes=_cuda.library().yhair_tri_lanes(STRIP, sc.n_triangles),
+         lanes=kernels.library().yhair_tri_lanes(STRIP, sc.n_triangles),
          hit_launches=hit_st["launches"], any_launches=any_st["launches"],
          kernel_vs_plain="bit-equal", tests_per_launch=tests,
          per_launch_ms={k: {f: st[f] for f in ("ms", "plain_ms", "bound_ms",
@@ -771,9 +774,8 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     import numpy as np
     import torch
 
+    from yhair_tpu_torch import kernels
     from yhair_tpu_torch.apps import render as app
-    from yhair_tpu_torch.geometry import triangles as tri
-    from yhair_tpu_torch.ops import intersect_kernel as ik
     from yhair_tpu_torch.utils import trace
 
     zero_launches()
@@ -791,15 +793,15 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
         trace.disable()
     n_alive = counts["rays.bounce_live"]
     n_shadow = counts["rays.shadow_live"]
-    launches = dict(ik.LAUNCHES)
+    launches = cluster_launches()
     require(img.shape == (height, width, 3) and bool(np.isfinite(img).all()),
             phase, "image not finite or of the wrong shape")
     require(all(n > 0 for n in launches.values()), phase,
             f"a kernel was not launched on the main path: {launches}")
     if sc.n_triangles:
         # every ray searched against the triangles went to a kernel
-        launches.update(tri.LAUNCHES)
-        require(all(tri.LAUNCHES.values())
+        launches.update((k, kernels.LAUNCHES[k]) for k in TRIANGLE_KERNELS)
+        require(all(launches[k] for k in TRIANGLE_KERNELS)
                 and counts["tri.rays_kernel"] == counts["tri.rays"], phase,
                 f"triangle searches not all on the kernels: {launches}, "
                 f"{counts['tri.rays_kernel']} of {counts['tri.rays']} rays")
@@ -834,7 +836,6 @@ def bench_fwdbwd(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     """bench.py's forward+backward: a warm-up frame, then a timed one."""
     import torch
 
-    from yhair_tpu_torch.ops import intersect_kernel as ik
     from yhair_tpu_torch.parallel import mesh
 
     scp, params = trainable(sc)
@@ -854,15 +855,14 @@ def bench_fwdbwd(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
         frame()
     for p in params.values():
         p.grad = None
-    for k in ik.LAUNCHES:
-        ik.LAUNCHES[k] = 0
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     frame()
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
-    launches = dict(ik.LAUNCHES)
+    launches = cluster_launches()
     grads = {k: p.grad.cpu() for k, p in params.items()}
     require(all(n > 0 for n in launches.values()), phase,
             f"a kernel was not launched in the forward+backward frame: "
@@ -1005,18 +1005,21 @@ def phase_golden(sc, cam, dev):
 
 
 def zero_launches():
-    from yhair_tpu_torch.geometry import triangles as tri
-    from yhair_tpu_torch.ops import intersect_kernel as ik
-    for counts in (ik.LAUNCHES, tri.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    from yhair_tpu_torch import kernels
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+
+
+def cluster_launches():
+    """The cluster search's launch counts in the one ``LAUNCHES``."""
+    from yhair_tpu_torch import kernels
+    return {k: kernels.LAUNCHES[k] for k in CLUSTER_KERNELS}
 
 
 def read_launches(phase):
     """The launch counts since ``zero_launches``; both kernels must have
     run."""
-    from yhair_tpu_torch.ops import intersect_kernel as ik
-    launches = dict(ik.LAUNCHES)
+    launches = cluster_launches()
     require(all(n > 0 for n in launches.values()), phase,
             f"a kernel was not launched on this path: {launches}")
     return launches
@@ -1374,7 +1377,6 @@ def _rank_worker(rank, world, backend, rdzv, out_dir):
 
     sys.path.insert(0, ROOT)
     from yhair_tpu_torch.apps import render as app
-    from yhair_tpu_torch.ops import intersect_kernel as ik
     from yhair_tpu_torch.parallel import mesh
 
     torch.cuda.set_device(0)
@@ -1415,7 +1417,7 @@ def _rank_worker(rank, world, backend, rdzv, out_dir):
         img = render(sc, cam, mesh.key_seed(0))
         torch.cuda.synchronize()
         frame_s = time.perf_counter() - t0
-        launches = dict(ik.LAUNCHES)
+        launches = cluster_launches()
         render_reduce_ms, render_wait_ms = list(reduce_ms), list(wait_ms)
         np.save(os.path.join(out_dir, f"img_w{world}_r{rank}.npy"),
                 img.cpu().numpy())
@@ -1444,7 +1446,7 @@ def _rank_worker(rank, world, backend, rdzv, out_dir):
             torch.cuda.synchronize()
             train.append(dict(
                 seconds=time.perf_counter() - t0,
-                launches=dict(ik.LAUNCHES), reduce_ms=list(reduce_ms),
+                launches=cluster_launches(), reduce_ms=list(reduce_ms),
                 wait_ms=list(wait_ms),
                 loss=float(loss),
                 grads={k: g.cpu().tolist() for k, g in grads.items()},
@@ -1891,7 +1893,6 @@ def phase_curves(dev):
     from yhair_tpu_torch.core import scene as tscene
     from yhair_tpu_torch.integrator import path
     from yhair_tpu_torch.ops import build_scene_clusters
-    from yhair_tpu_torch.ops import intersect_kernel as ik
 
     cfg = CONFIGS[1]
     scene_d, cam_d = cfg["fn"]()
@@ -1907,8 +1908,7 @@ def phase_curves(dev):
     for name, d in (("curve", crv), ("tessellated", tes)):
         sc, _ = build_scene_clusters(tscene.from_dict(d, device=dev),
                                      device=dev)
-        for k in ik.LAUNCHES:
-            ik.LAUNCHES[k] = 0
+        zero_launches()
         t0 = time.perf_counter()
         imgs[name] = app.progressive_render(sc, cam, cfg["res"], cfg["res"],
                                             cfg["spp"], cfg["depth"], seed=0,

@@ -16,17 +16,22 @@ generators or from scene files (JSON beside PLY, .hair, OBJ and image
 files).
 
 Layer map:
+  kernels.py   the CUDA library: build, the table of its C entry points,
+               ``launch`` (the one ``LAUNCHES`` count) and input checks
   io/          scene files, PLY, .hair, OBJ, images (PNG, PFM, EXR, HDR),
                host numpy
   core/        RNG layout, camera, scene tensors, environment map, textures
-  geometry/    ray-segment closest approach, brute-force nearest hit,
-               ray-triangle search, Bezier curves, mesh shape ops (numpy)
+  geometry/    ray-segment closest approach, the brute-force scan,
+               ray-triangle search (``tri_hit_kernel``, ``tri_any_kernel``
+               + the plain twin), Bezier curves, mesh shape ops (numpy)
   accel/       LBVH build (host numpy), the native C++ cluster builder
-               (ctypes), the skip-pointer BVH walk, posed instances
-  ops/         clusters, the three CUDA kernels (cluster lists, hit, any)
-               + plain twins
+               (ctypes), the skip-pointer BVH walk, posed instances; the
+               backend seam ``scene.accel`` (see ``accel/__init__.py``)
+  ops/         clusters, the cluster search's three CUDA kernels
+               (``lists_kernel``, ``hit_kernel`` + ``hit_merge_kernel``,
+               ``any_kernel``) + plain twins
   bsdf/        hair and surface BSDFs
-  integrator/  wavefront path tracer
+  integrator/  wavefront path tracer, through ``scene.accel`` alone
   parallel/    counter-hash uniforms, the tile pixel order, rendering and
                training steps over process-group ranks
   utils/       render and training checkpoints, NaN and finite checks,

@@ -2,13 +2,16 @@
 
 ``build_scene_bvh`` rewrites a Scene so its segment SoA is the BVH's
 ordered, padded layout and carries the ``DeviceBVH`` in ``scene.accel``,
-so the walk's hit indices line up with the shading's gathers. It mirrors
-``ops.build_scene_clusters``.
+so the walk's hit indices line up with the shading's gathers.
+
+``scene.accel`` is the integrator's one seam to the segment search: the
+cluster search (``ops.clusters.Clusters``), posed instances of it
+(``instanced.InstancedClusters``) and the BVH (``traverse.DeviceBVH``)
+each answer ``nearest``, ``occluded``, ``winners`` and ``sort_box``, as
+the brute-force ``geometry.segments.Scan`` does for a scene without one.
 """
 
 from __future__ import annotations
-
-import torch
 
 from ..core.scene import Scene
 from ..device import resolve_device
@@ -24,9 +27,4 @@ def build_scene_bvh(scene: Scene, leaf_size=4, device=None):
                       leaf_size=leaf_size)
     bvh = traverse.DeviceBVH.from_host(host, device=dev)
     reordered = Segments(bvh.p0, bvh.p1, bvh.r0, bvh.r1)
-    sidx = bvh.seg_index.long()
-    smid = scene.seg_mat_id.to(dev)[torch.clamp(sidx, min=0)]
-    smid = torch.where(sidx >= 0, smid, 0).to(torch.int32)
-    scene2 = scene.to(dev)._replace(segments=reordered, accel=bvh,
-                                    seg_mat_id=smid)
-    return scene2, bvh
+    return scene.with_accel(bvh, reordered, bvh.seg_index), bvh

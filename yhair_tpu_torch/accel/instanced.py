@@ -30,6 +30,7 @@ import torch
 
 from ..core.safemath import sqrt_rn
 from ..device import resolve_device
+from ..geometry.segments import Segments
 from ..io.scene_json import frame_matrix
 from ..ops import intersect_kernel as ik
 from ..ops.clusters import Clusters
@@ -55,6 +56,28 @@ class InstancedClusters(NamedTuple):
     def to(self, device):
         return InstancedClusters(self.cl.to(device),
                                  *(a.to(device) for a in self[1:]))
+
+    # the integrator's searches (``scene.accel``)
+    def nearest(self, o, d):
+        return make_nearest_fn(self, device=o.device)(o, d)
+
+    def occluded(self, o, d, limit):
+        return make_occluded_fn(self, device=o.device)(o, d, limit)
+
+    def winners(self, segments, seg_mat_id, idx):
+        """The winners posed in world space, arange(N), hair_mid."""
+        *posed, hair_mid = gather_world_segments(self, segments, idx)
+        return (Segments(*posed), torch.arange(idx.shape[0],
+                                               device=idx.device), hair_mid)
+
+    def sort_box(self, segments):
+        """The canonical box's bounding sphere posed by every frame, as
+        the reference does (only the sort's scale, never a result)."""
+        lo, hi = self.cl.sort_box(segments)
+        r = 0.87 * torch.linalg.norm(hi - lo)
+        ctr = _apply(self.R, 0.5 * (lo + hi)) + self.t
+        rad = (r * self.scale)[:, None]
+        return (ctr - rad).amin(0), (ctr + rad).amax(0)
 
 
 def build_instanced(cl: Clusters, frames, inst_mat=None,

@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..geometry import segments as seg
+
 INF = 1e30
 # steps between the live-ray compactions (each a host sync)
 CHECK_EVERY_CPU, CHECK_EVERY_CUDA = 1, 16
@@ -52,6 +54,13 @@ class DeviceBVH(NamedTuple):
         return self._replace(**{k: getattr(self, k).to(device) for k in (
             "node_min", "node_max", "skip", "p0", "p1", "r0", "r1",
             "seg_index")})
+
+    # the integrator's searches (``scene.accel``)
+    def nearest(self, o, d):
+        return make_nearest_fn(self)(o, d)
+
+    occluded, winners = seg.Scan.occluded, seg.Scan.winners
+    sort_box = seg.Scan.sort_box
 
 
 def _dot(a, b):
@@ -164,10 +173,10 @@ def nearest_hit(o, d, bvh: DeviceBVH, t_min=1e-4, t_max=INF,
 
 
 def make_nearest_fn(bvh: DeviceBVH, reordered_segments=None):
-    """fn(o, d) -> (t, idx into the ordered segments, hit), the hook
-    ``integrator.path`` calls for a scene whose accel is the BVH. Its
-    shading then gathers the BVH's ordered segments
-    (``reordered_segments``, kept for the reference's signature)."""
+    """fn(o, d) -> (t, idx into the ordered segments, hit), which
+    ``DeviceBVH.nearest`` calls for the integrator. Its shading then
+    gathers the BVH's ordered segments (``reordered_segments``, kept for
+    the reference's signature)."""
     def fn(o, d):
         t, idx, hit, _ = nearest_hit(o, d, bvh)
         return t, idx, hit

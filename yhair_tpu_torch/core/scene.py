@@ -103,6 +103,16 @@ class Scene(NamedTuple):
         return Scene(**{name: None if v is None else v.to(device)
                         for name, v in self._asdict().items()})
 
+    def with_accel(self, accel, segments, seg_index):
+        """The scene on ``seg_index``'s device, searched through ``accel``
+        over its reordered ``segments`` of original ids ``seg_index``."""
+        dev = seg_index.device
+        sidx = seg_index.long()
+        smid = self.seg_mat_id.to(dev)[torch.clamp(sidx, min=0)]
+        smid = torch.where(sidx >= 0, smid, 0).to(torch.int32)
+        return self.to(dev)._replace(segments=segments, accel=accel,
+                                     seg_mat_id=smid)
+
 
 def _material_from_legacy(prim: dict) -> dict:
     """The reference's lowering of a prim's material: {'albedo': c} =>

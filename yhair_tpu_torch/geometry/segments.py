@@ -4,7 +4,8 @@
 is the arithmetic of the CUDA kernels (``csrc/intersect.cu``) and of the
 integrator's recompute of the winning t, and near-ties at strand-vertex
 junctions flip winners if the forms differ. The brute-force
-``nearest_hit`` is the parity target of the cluster search.
+``nearest_hit`` (``Scan`` in the integrator) is the parity target of the
+cluster search.
 """
 
 from __future__ import annotations
@@ -91,6 +92,43 @@ def nearest_hit(o, d, segs: Segments, t_min=1e-4, t_max=INF, chunk=2048,
                              best_i)
         best_id = torch.where(closer, id_local, best_id)
     return best_t, best_i, best_t < INF
+
+
+class Scan(NamedTuple):
+    """The brute-force search over ``segs``, ``chunk`` segments a step
+    (None where only its box is asked), answering ``scene.accel``'s
+    questions. Its ``occluded``, ``winners`` and ``sort_box`` read only
+    ``nearest`` and ``seg_index`` (original ids, -1 = padding): the
+    clusters and the BVH share them."""
+
+    segs: Segments
+    chunk: int
+    seg_index = None
+
+    def nearest(self, o, d):
+        return nearest_hit(o, d, self.segs, chunk=self.chunk)
+
+    def occluded(self, o, d, limit):
+        """True where the nearest hit lies before ``limit``."""
+        t, _, hit = self.nearest(o, d)
+        return hit & (t < limit)
+
+    def winners(self, segments, seg_mat_id, idx):
+        """The winners as stored: (segments, idx, their hair-material
+        ids; 0 without segments)."""
+        if not seg_mat_id.shape[0]:   # no strand segments to look up
+            return segments, idx, torch.zeros_like(idx, dtype=torch.int32)
+        return segments, idx, seg_mat_id[torch.clamp(
+            idx.long(), 0, seg_mat_id.shape[0] - 1)]
+
+    def sort_box(self, segments):
+        """(lo, hi) of the real segments' endpoints, detached."""
+        p0, p1 = segments.p0.detach(), segments.p1.detach()
+        if self.seg_index is not None:
+            real = self.seg_index >= 0
+            p0, p1 = p0[real], p1[real]
+        return (torch.minimum(p0.amin(0), p1.amin(0)),
+                torch.maximum(p0.amax(0), p1.amax(0)))
 
 
 class SegmentShade(NamedTuple):

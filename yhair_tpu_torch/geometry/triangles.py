@@ -22,13 +22,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..utils import trace
 
 INF = 1e30
 # rays per chunk of the search: (8192, 2048) f32 temporaries are 64 MB
 RAY_CHUNK = 8192
-# CUDA kernel launches, added to by the wrappers only where they launch
-LAUNCHES = {"tri_hit_kernel": 0, "tri_any_kernel": 0}
 
 
 class Triangles(NamedTuple):
@@ -148,25 +147,6 @@ def _search(o, d, tris: Triangles, t_min, t_max, chunk):
         return t, idx
 
 
-def _check(o, d, tris: Triangles, dist=None):
-    """The kernels take contiguous float32 rays (N, 3), triangles (T, 3)
-    and dist (N,) on one device; raise ValueError on anything else (on
-    the CPU too, where the twin would take it)."""
-    n = o.shape[0]
-    shapes = [(o, (n, 3)), (d, (n, 3)), (tris.v0, (tris.n_triangles, 3)),
-              (tris.v1, (tris.n_triangles, 3)),
-              (tris.v2, (tris.n_triangles, 3))]
-    if dist is not None:
-        shapes.append((dist, (n,)))
-    for x, shape in shapes:
-        if x.dtype != torch.float32 or tuple(x.shape) != shape:
-            raise ValueError(f"triangle search takes float32 {shape}, not "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if x.device != o.device or not x.is_contiguous():
-            raise ValueError("triangle search inputs must be contiguous on "
-                             "one device")
-
-
 def _count(o):
     if trace.enabled():
         trace.add("tri.rays", o.shape[0])
@@ -178,25 +158,19 @@ def _count(o):
 def search(o, d, tris: Triangles, t_min=1e-4, t_max=INF, chunk=2048):
     """(t or INF, idx int64) of the first triangle of least t in (t_min,
     t_max). CUDA tensors: one ``tri_hit_kernel`` launch; CPU tensors: the
-    plain twin ``_search`` (``chunk`` triangles at a time)."""
-    _check(o, d, tris)
+    plain twin ``_search`` (``chunk`` triangles at a time). Both raise
+    ValueError unless the inputs are contiguous float32 on one device."""
+    kernels.check(1, o, d, *((v, torch.float32, (tris.n_triangles, 3))
+                             for v in tris[:3]))
     _count(o)
     if o.device.type == "cpu":
         return _search(o, d, tris, t_min, t_max, chunk)
     with trace.span("yhair.triangles"):
-        from ..ops import _cuda
         n = o.shape[0]
         t = torch.empty(n, dtype=torch.float32, device=o.device)
         idx = torch.empty(n, dtype=torch.int64, device=o.device)
-        err = _cuda.library().yhair_tri_hit(
-            o.data_ptr(), d.data_ptr(), tris.v0.data_ptr(),
-            tris.v1.data_ptr(), tris.v2.data_ptr(), n, tris.n_triangles,
-            t_min, t_max, t.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"triangle hit kernel launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES["tri_hit_kernel"] += 1
+        kernels.launch("yhair_tri_hit", o, d, tris.v0, tris.v1, tris.v2, n,
+                       tris.n_triangles, t_min, t_max, t, idx)
         return t, idx
 
 
@@ -217,23 +191,17 @@ def occluded(o, d, dist, tris: Triangles, t_min=1e-4, chunk=2048):
     """Shadow rays: whether the least t over the triangles in (t_min,
     INF), or INF where none, lies below dist * (1 - 1e-4). CUDA tensors:
     one ``tri_any_kernel`` launch; CPU tensors: the plain twin."""
-    _check(o, d, tris, dist)
+    kernels.check(1, o, d, (dist, torch.float32, o.shape[:1]),
+                  *((v, torch.float32, (tris.n_triangles, 3))
+                    for v in tris[:3]))
     _count(o)
     if o.device.type == "cpu":
         t, _ = _search(o, d, tris, t_min, INF, chunk)
         return t < dist * (1.0 - 1e-4)
     with trace.span("yhair.triangles"):
-        from ..ops import _cuda
         occ = torch.empty(o.shape[0], dtype=torch.bool, device=o.device)
-        err = _cuda.library().yhair_tri_any(
-            o.data_ptr(), d.data_ptr(), dist.data_ptr(), tris.v0.data_ptr(),
-            tris.v1.data_ptr(), tris.v2.data_ptr(), o.shape[0],
-            tris.n_triangles, t_min, occ.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"triangle any kernel launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES["tri_any_kernel"] += 1
+        kernels.launch("yhair_tri_any", o, d, dist, tris.v0, tris.v1,
+                       tris.v2, o.shape[0], tris.n_triangles, t_min, occ)
         return occ
 
 

@@ -36,9 +36,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..accel import instanced, traverse
-from ..accel.instanced import InstancedClusters
-from ..accel.traverse import DeviceBVH
 from ..bsdf import hair as th
 from ..bsdf import surface as ts
 from ..core.camera import Camera, camera_rays
@@ -51,8 +48,6 @@ from ..device import resolve_device
 from ..geometry import bezier as bez
 from ..geometry import segments as seg
 from ..geometry import triangles as tri
-from ..ops import intersect_kernel as ik
-from ..ops.clusters import Clusters
 from ..utils import trace as tracing
 
 INF = seg.INF
@@ -98,21 +93,11 @@ def _permuted(fn, perm, *args):
     return back[0] if len(back) == 1 else tuple(back)
 
 
-def _nearest(scene: Scene, o, d, chunk, perm=None):
-    """Segment search: the cluster kernels through scene.accel (flat or
-    instanced), the BVH walk, else the brute-force scan. The search is a
-    discrete argmin: it sees detached rays."""
-    o, d = o.detach(), d.detach()
-    if isinstance(scene.accel, Clusters):
-        fn = ik.make_nearest_fn(scene.accel, device=o.device)
-    elif isinstance(scene.accel, InstancedClusters):
-        fn = instanced.make_nearest_fn(scene.accel, device=o.device)
-    elif isinstance(scene.accel, DeviceBVH):
-        fn = traverse.make_nearest_fn(scene.accel)
-    else:
-        def fn(o_, d_):
-            return seg.nearest_hit(o_, d_, scene.segments, chunk=chunk)
-    return _permuted(fn, perm, o, d)
+def _accel(scene: Scene, chunk):
+    """The segment search: scene.accel, else the brute-force scan."""
+    if scene.accel is None:
+        return seg.Scan(scene.segments, chunk)
+    return scene.accel
 
 
 def _norm(v):
@@ -163,23 +148,15 @@ def intersect_scene(scene: Scene, o, d, chunk=2048, perm=None) -> Hit:
 
 def _intersect(scene: Scene, o, d, chunk, perm) -> Hit:
     n = o.shape[0]
-    t_seg, idx, hit_seg = _nearest(scene, o, d, chunk, perm)
+    accel = _accel(scene, chunk)
+    # the search is a discrete argmin: it sees detached rays
+    t_seg, idx, hit_seg = _permuted(accel.nearest, perm, o.detach(),
+                                    d.detach())
     t_seg, idx = t_seg.detach(), idx.detach()
-    # the searches are discrete: each winner is recomputed below from the
-    # live geometry, as the segment the shading reads (segs_view[idx_view])
-    if isinstance(scene.accel, InstancedClusters):
-        # the canonical winner posed in world space
-        p0, p1, r0, r1, hair_mid = instanced.gather_world_segments(
-            scene.accel, scene.segments, idx)
-        segs_view = seg.Segments(p0, p1, r0, r1)
-        idx_view = torch.arange(n, device=o.device)
-    else:
-        segs_view, idx_view = scene.segments, idx
-        if scene.seg_mat_id.shape[0]:
-            hair_mid = scene.seg_mat_id[torch.clamp(
-                idx.long(), 0, scene.seg_mat_id.shape[0] - 1)]
-        else:   # no strand segments to look up
-            hair_mid = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    # each winner is recomputed below from the live geometry, as the
+    # segment the shading reads (segs_view[idx_view])
+    segs_view, idx_view, hair_mid = accel.winners(
+        scene.segments, scene.seg_mat_id, idx)
     if scene.n_curves:
         # the winning chord, re-evaluated from the control points
         t_c, cidx, u_c, hit_c = _curve_hit(scene, o, d, chunk)
@@ -305,16 +282,7 @@ def occluded_scene(scene: Scene, o, d, dist, chunk=2048, perm=None):
     with tracing.span("yhair.search"):
         o, d, dist = o.detach(), d.detach(), dist.detach()
         limit = dist * (1.0 - 1e-4)
-        if isinstance(scene.accel, Clusters):
-            occ = _permuted(ik.make_occluded_fn(scene.accel, device=o.device),
-                            perm, o, d, limit)
-        elif isinstance(scene.accel, InstancedClusters):
-            occ = _permuted(instanced.make_occluded_fn(scene.accel,
-                                                       device=o.device),
-                            perm, o, d, limit)
-        else:
-            t_seg, _, hit_seg = _nearest(scene, o, d, chunk, perm)
-            occ = hit_seg & (t_seg < limit)
+        occ = _permuted(_accel(scene, chunk).occluded, perm, o, d, limit)
         if scene.n_curves:
             t_c, _, _, hit_c = _curve_hit(scene, o, d, chunk)
             occ = occ | (hit_c & (t_c < limit))
@@ -355,26 +323,12 @@ def _ray_sort_perm(o, d, alive, lo, inv_ext):
 
 
 def _sort_bounds(scene: Scene):
-    """Box of the real segments for the Morton sort. The padding segments
-    of the clusters and of the BVH (at 1e8) are left out: the reference's
-    bounds include them, which collapses every origin into Morton cell 0
-    (octant-only sort).
-    For instances, the canonical box's bounding sphere posed by every
-    frame, as the reference does (only the sort's scale, never a
-    result)."""
-    p0, p1 = scene.segments.p0.detach(), scene.segments.p1.detach()
-    ic = scene.accel
-    cl = ic.cl if isinstance(ic, InstancedClusters) else ic
-    if isinstance(cl, (Clusters, DeviceBVH)):
-        real = cl.seg_index >= 0
-        p0, p1 = p0[real], p1[real]
-    lo = torch.minimum(p0.amin(0), p1.amin(0))
-    hi = torch.maximum(p0.amax(0), p1.amax(0))
-    if isinstance(ic, InstancedClusters):
-        r = 0.87 * torch.linalg.norm(hi - lo)
-        ctr = instanced._apply(ic.R, 0.5 * (lo + hi)) + ic.t
-        rad = (r * ic.scale)[:, None]
-        lo, hi = (ctr - rad).amin(0), (ctr + rad).amax(0)
+    """Box of the real segments for the Morton sort (``sort_box``). The
+    padding segments of the clusters and of the BVH (at 1e8) are left
+    out: the reference's bounds include them, which collapses every
+    origin into Morton cell 0 (octant-only sort). For instances, the
+    posed bounding sphere of that box."""
+    lo, hi = _accel(scene, None).sort_box(scene.segments)
     return lo, 1.0 / torch.clamp(hi - lo, min=1e-6)
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..accel import lbvh, native
+from ..geometry import segments as seg
 
 CLUSTER_SIZE = 128
 
@@ -54,6 +55,18 @@ class Clusters(NamedTuple):
     def to(self, device):
         return self._replace(**{k: getattr(self, k).to(device) for k in (
             "s0", "s1", "tc", "cmin", "cmax", "seg_index")})
+
+    # the integrator's searches (``scene.accel``); intersect_kernel
+    # imports this module, so they import it when called
+    def nearest(self, o, d):
+        from . import intersect_kernel as ik
+        return ik.make_nearest_fn(self, device=o.device)(o, d)
+
+    def occluded(self, o, d, limit):
+        from . import intersect_kernel as ik
+        return ik.make_occluded_fn(self, device=o.device)(o, d, limit)
+
+    winners, sort_box = seg.Scan.winners, seg.Scan.sort_box
 
 
 def build(p0, p1, r0, r1, cluster_size=CLUSTER_SIZE, device="cpu",

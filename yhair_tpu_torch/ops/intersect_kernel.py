@@ -20,16 +20,19 @@ Kernel wrappers (``_block_cluster_lists``, ``hit_pass``, ``any_pass``)
 launch the CUDA kernel for CUDA tensors and raise if they cannot; for CPU
 tensors they run the plain torch versions (``_block_cluster_lists_plain``,
 ``hit_pass_plain``, ``any_pass_plain``), which repeat the kernels'
-arithmetic. ``LAUNCHES`` counts each kernel's launches.
+arithmetic. ``LAUNCHES`` (``kernels.LAUNCHES``) counts each launch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..device import resolve_device
 from ..utils import trace
 from .clusters import Clusters
+
+F32, I32 = torch.float32, torch.int32
 
 INF = 1e30
 NO_ID = 3.4e38
@@ -51,8 +54,7 @@ RAY_CHUNK = 64 * BLOCK
 # and keys (_lists_block_bytes); past it (C > 16,384) the kernel works in
 # a per-block slice of a global scratch tensor
 LISTS_SMEM = 200 * 1024
-# CUDA kernel launches, added to by the wrappers only where they launch
-LAUNCHES = {"lists_kernel": 0, "hit_kernel": 0, "any_kernel": 0}
+LAUNCHES = kernels.LAUNCHES
 
 
 def _k_cap(c):
@@ -80,13 +82,13 @@ def _block_cluster_lists(o, d, cl: Clusters, t_max=None, exclude_below=None,
     inputs on the rays' device, and raise ValueError on others.
     """
     with trace.span("yhair.lists"):
-        _check_lists(o, d, cl, t_max, exclude_below)
+        nb, c = o.shape[0] // BLOCK, cl.n_clusters
+        kernels.check(BLOCK, o, d, (cl.cmin, F32, (c, 3)),
+                      (cl.cmax, F32, (c, 3)), (t_max, F32, (o.shape[0],)),
+                      (exclude_below, F32, (nb,)))
         if o.device.type == "cpu":
             return _block_cluster_lists_plain(o, d, cl, t_max, exclude_below,
                                               return_key)
-        from . import _cuda
-        lib = _cuda.library()
-        nb, c = o.shape[0] // BLOCK, cl.n_clusters
         ids = torch.empty((nb, c), dtype=torch.int32, device=o.device)
         counts = torch.empty(nb, dtype=torch.int32, device=o.device)
         key = (torch.empty((nb, c), dtype=torch.float32, device=o.device)
@@ -95,14 +97,9 @@ def _block_cluster_lists(o, d, cl: Clusters, t_max=None, exclude_below=None,
         scratch = (torch.empty(nb * per_block // 8, dtype=torch.int64,
                                device=o.device)
                    if per_block > LISTS_SMEM else None)
-        err = lib.yhair_block_lists(
-            _ptr(o), _ptr(d), _ptr(cl.cmin), _ptr(cl.cmax), _opt_ptr(t_max),
-            _opt_ptr(exclude_below), nb, c, _sort_cap(c), _opt_ptr(scratch),
-            _ptr(ids), _ptr(counts), _opt_ptr(key),
-            torch.cuda.current_stream(o.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"lists kernel launch failed: CUDA error {err}")
-        LAUNCHES["lists_kernel"] += 1
+        kernels.launch("yhair_block_lists", o, d, cl.cmin, cl.cmax, t_max,
+                       exclude_below, nb, c, _sort_cap(c), scratch, ids,
+                       counts, key)
         return (ids, counts, key) if return_key else (ids, counts)
 
 
@@ -154,24 +151,6 @@ def _lists_block_bytes(c):
     """A lists_kernel block's sort buffer and C key bit patterns, in
     bytes (a multiple of 8)."""
     return 8 * (_sort_cap(c) + (c + 1) // 2)
-
-
-def _check_lists(o, d, cl, t_max, exclude_below):
-    n = o.shape[0]
-    if n % BLOCK or o.shape != (n, 3) or d.shape != (n, 3):
-        raise ValueError(f"rays must be (N, 3) with N % {BLOCK} == 0")
-    c = cl.n_clusters
-    expect = [(o, (n, 3)), (d, (n, 3)), (cl.cmin, (c, 3)), (cl.cmax, (c, 3))]
-    if t_max is not None:
-        expect.append((t_max, (n,)))
-    if exclude_below is not None:
-        expect.append((exclude_below, (n // BLOCK,)))
-    for x, shape in expect:
-        if x.shape != shape or x.dtype != torch.float32:
-            raise ValueError(f"list inputs must be float32 {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if x.device != o.device or not x.is_contiguous():
-            raise ValueError("list inputs must be contiguous on one device")
 
 
 def _visited_threshold(key, ids, counts, n_visited):
@@ -324,27 +303,6 @@ def any_pass_plain(o, d, t_cap, ids, counts, tc, k_cap,
 # kernel wrappers
 
 
-def _ptr(x):
-    return x.data_ptr()
-
-
-def _opt_ptr(x):
-    return None if x is None else x.data_ptr()
-
-
-def _check_rays(o, d, tc, *per_ray):
-    n = o.shape[0]
-    if n % BLOCK or o.shape != (n, 3) or d.shape != (n, 3):
-        raise ValueError(f"rays must be (N, 3) with N % {BLOCK} == 0")
-    for x in (o, d, tc, *per_ray):
-        if x.device != o.device or not x.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous on one device")
-    if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise ValueError("rays must be float32")
-    if tc.dtype != torch.float32 or tc.shape[1:] != (16, BLOCK):
-        raise ValueError("tiles must be float32 (C, 16, 128)")
-
-
 def hit_pass(o, d, seeds, ids, counts, tc, k_cap):
     """One nearest-hit pass (the TPU's ``_hit_pass``).
 
@@ -355,33 +313,25 @@ def hit_pass(o, d, seeds, ids, counts, tc, k_cap):
     ids, counts = _pack_lists(ids, counts, k_cap, tc.shape[0])
     if o.device.type == "cpu":
         return hit_pass_plain(o, d, seeds, ids, counts, tc, k_cap)
+    n, nb = o.shape[0], o.shape[0] // BLOCK
     t0, i0, oid0 = (x.contiguous() for x in seeds)
-    _check_rays(o, d, tc, t0, i0, oid0, ids, counts)
-    if (t0.dtype, i0.dtype, oid0.dtype) != (torch.float32, torch.int32,
-                                            torch.float32):
-        raise ValueError("seeds must be (float32, int32, float32)")
-    from . import _cuda
-    lib = _cuda.library()
-    n = o.shape[0]
+    kernels.check(BLOCK, o, d, (t0, F32, (n,)), (i0, I32, (n,)),
+                  (oid0, F32, (n,)), (ids, I32, (nb, k_cap)),
+                  (counts, I32, (nb,)), (tc, F32, (tc.shape[0], 16, BLOCK)))
     prefix = _work_items(counts, CHUNK)
     # per-item partials (t, oid, idx) for as many items as the packed
     # counts allow (each <= max(k_cap, C)), sized without a host sync:
     # 201 MB at the bench shapes, of which a launch writes under 5%
-    max_items = (n // BLOCK) * -(-max(k_cap, tc.shape[0]) // CHUNK)
+    max_items = nb * -(-max(k_cap, tc.shape[0]) // CHUNK)
     partials = torch.empty(3 * max_items * BLOCK, dtype=torch.float32,
                            device=o.device)
     scratch = torch.empty(1, dtype=torch.int32, device=o.device)
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     idx = torch.empty(n, dtype=torch.int32, device=o.device)
     oid = torch.empty(n, dtype=torch.float32, device=o.device)
-    err = lib.yhair_hit_pass(
-        _ptr(o), _ptr(d), _ptr(t0), _ptr(i0), _ptr(oid0), _ptr(ids),
-        _ptr(counts), _ptr(prefix), _ptr(tc), n // BLOCK, k_cap, CHUNK,
-        max_items, _ptr(scratch), _ptr(partials), _ptr(t), _ptr(idx),
-        _ptr(oid), torch.cuda.current_stream(o.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"hit kernel launch failed: CUDA error {err}")
-    LAUNCHES["hit_kernel"] += 1
+    kernels.launch("yhair_hit_pass", o, d, t0, i0, oid0, ids, counts, prefix,
+                   tc, nb, k_cap, CHUNK, max_items, scratch, partials,
+                   t, idx, oid)
     return t, idx, oid
 
 
@@ -396,28 +346,16 @@ def any_pass(o, d, t_cap, ids, counts, tc, k_cap, visits=None):
     ids, counts = _pack_lists(ids, counts, k_cap, tc.shape[0])
     if o.device.type == "cpu":
         return any_pass_plain(o, d, t_cap, ids, counts, tc, k_cap)
+    n, nb = o.shape[0], o.shape[0] // BLOCK
     t_cap = t_cap.contiguous()
-    _check_rays(o, d, tc, t_cap, ids, counts)
-    if t_cap.dtype != torch.float32:
-        raise ValueError("t_cap must be float32")
-    if visits is not None and (visits.shape != counts.shape
-                               or visits.dtype != torch.int32
-                               or visits.device != o.device):
-        raise ValueError("visits must be (nb,) int32 on the rays' device")
-    from . import _cuda
-    lib = _cuda.library()
-    n = o.shape[0]
+    kernels.check(BLOCK, o, d, (t_cap, F32, (n,)), (ids, I32, (nb, k_cap)),
+                  (counts, I32, (nb,)), (tc, F32, (tc.shape[0], 16, BLOCK)),
+                  (visits, I32, (nb,)))
     prefix = _work_items(counts, CHUNK)
     scratch = torch.empty(1, dtype=torch.int32, device=o.device)
     occ = torch.empty(n, dtype=torch.int32, device=o.device)
-    err = lib.yhair_any_pass(
-        _ptr(o), _ptr(d), _ptr(t_cap), _ptr(ids), _ptr(counts),
-        _ptr(prefix), _ptr(tc), n // BLOCK, k_cap, CHUNK, _ptr(scratch),
-        _ptr(occ), None if visits is None else _ptr(visits),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"any kernel launch failed: CUDA error {err}")
-    LAUNCHES["any_kernel"] += 1
+    kernels.launch("yhair_any_pass", o, d, t_cap, ids, counts, prefix, tc,
+                   nb, k_cap, CHUNK, scratch, occ, visits)
     return occ
 
 
