@@ -6,7 +6,7 @@ card.
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
-1. build    nvcc builds ``yhair_tpu_torch/csrc/intersect.cu`` and g++
+1. build    nvcc builds ``yhair_tpu_torch/csrc/*.cu`` and g++
             the native cluster builder (``native/cluster_builder.cpp``,
             which every scene build then takes: the phase fails if it is
             not available); the card's name and power limit are printed
@@ -24,9 +24,19 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             the mean and maximum list length and the kernels' work items.
             The any kernel's bound counts the visits a sequential walk
             needs until each block is dark (from any_pass_plain).
+    hair3   the same strip traced again without autograd, every
+            ``hair_kernel`` launch (one a bounce: the context, f and pdf
+            towards both point lights, the BSDF sample) held against the
+            plain twin ``bsdf/hair.hair_bounce`` on the same inputs on the
+            card, every output bit for bit, and timed (CUDA events x5
+            behind a device sleep) beside the twin and the bound (the
+            twin's element operations a lane over the FP32 peak, against
+            the bytes); nvcc's registers and spills of the kernel.
 3. main     the bench workload through ``apps.render.progressive_render``
             (512x512, 1 spp, depth 4, four strips), with the launch
-            counts set to 0 just before and read just after.
+            counts set to 0 just before and read just after: one
+            ``hair_kernel`` launch a bounce a strip, and every hair lane
+            shaded by it (counters ``shade.hair_kernel``, ``shade.hair``).
 4. train    the training path. (a) bench.py's forward+backward: the
             bench frame as four strips, each ``L.mean().backward()`` into
             beta_m, beta_n and sigma_a leaves; one warm-up frame, then
@@ -76,6 +86,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
             bit-equal to its plain version, with the count of blocks
             sent as the "scan every cluster" sentinel (lists longer
             than MAX_IDS).
+    hair5   ``hair3`` on that strip (a point light and the env map's
+            sample).
     triangles5  every triangle search of that strip (each bounce's
             nearest search through ``tri_hit_kernel``, its point-light
             and env-map shadow rays through ``tri_any_kernel``) held
@@ -193,6 +205,9 @@ GOLDEN_MEAN_RTOL, GOLDEN_P99_RTOL = 0.01, 0.03
 # the LAUNCHES keys of the cluster search and of the triangle search
 CLUSTER_KERNELS = ("lists_kernel", "hit_kernel", "any_kernel")
 TRIANGLE_KERNELS = ("tri_hit_kernel", "tri_any_kernel")
+# device cycles of the sleep queued before a timed run of launches (about
+# 10 ms at the H100's 1.98 GHz): the host queues them meanwhile
+HOST_LEAD_CYCLES = 20_000_000
 # bench.py differentiates with respect to these
 TRAIN_PARAMS = ("beta_m", "beta_n", "sigma_a")
 FD_EPS, FD_RTOL = 1e-3, 0.02
@@ -347,12 +362,53 @@ class TriRecorder:
         tri.search, tri.occluded = self.orig
 
 
+class HairRecorder:
+    """Wraps ``bsdf.hair.hair_bounce_kernel`` for the span of a ``with``,
+    keeping every call's inputs and outputs. Launches still go through
+    the wrapper."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from yhair_tpu_torch.bsdf import hair as th
+        self.orig = th.hair_bounce_kernel
+        orig = self.orig
+
+        def rec(*args):
+            out = orig(*args)
+            self.calls.append((args, out))
+            return out
+        th.hair_bounce_kernel = rec
+        return self
+
+    def __exit__(self, *exc):
+        from yhair_tpu_torch.bsdf import hair as th
+        th.hair_bounce_kernel = self.orig
+
+
 def timed(fn, reps=1):
     """(last result, mean device ms) of reps calls of fn on the current
     stream, between two CUDA events."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def timed_device(fn, reps=5):
+    """(last result, mean device ms) of reps calls of fn queued behind a
+    device sleep, so the events time the device's work and not the
+    host's launches."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -407,12 +463,12 @@ def phase_build():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    ptxas = ptxas_lines(log)
     emit(phase="build", ok=True, seconds=time.time() - t0,
          library=os.path.relpath(lib, ROOT),
          native_library=os.path.relpath(native_lib, ROOT),
-         ptxas=ptxas_lines(log),
-         nvidia_smi=smi)
-    return smi
+         ptxas=ptxas, nvidia_smi=smi)
+    return smi, ptxas
 
 
 def list_stats(kinds, key, counts_p, k_cap):
@@ -718,6 +774,114 @@ def phase_kernels(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
     return hit_stats, any_stats, lists_stats
 
 
+def hair_ops_per_lane(args):
+    """FP32 element operations a lane of one hair_kernel launch, as the
+    plain twin counts them: the elements of every aten op it runs (the
+    context, f and the pdf at each direction, the sample and f and the
+    pdf there) on its first 256 lanes, over 256."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from yhair_tpu_torch.bsdf import hair as th
+
+    views = {"detach", "view", "unsqueeze", "expand", "select", "slice",
+             "alias", "unbind", "_unsafe_view", "t", "as_strided"}
+
+    class Count(TorchDispatchMode):
+        elements = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ not in views:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                Count.elements += sum(o.numel() for o in outs
+                                      if isinstance(o, torch.Tensor))
+            return out
+
+    mat, mat_id, h, wo, wis, u = args
+    k = 256
+    lanes = th.material_at(mat, None if mat_id is None else mat_id[:k])
+    inputs = (h[:k], wo[:k], [w[:k] for w in wis], u[:k])
+    with Count():
+        th.hair_bounce(lanes, *inputs)
+    return Count.elements / k
+
+
+def hold_hair(st, args, out, phase):
+    """One recorded hair_kernel launch against the plain twin (the torch
+    code on the same inputs, on the card), every output bit for bit,
+    then timed (CUDA events x5). The bound: the twin's element
+    operations a lane (``hair_ops_per_lane``) over the FP32 peak, against
+    the inputs read once (a lane's 4 uniforms as 16 bytes) and the
+    outputs written once over HBM's rate."""
+    import torch
+
+    from yhair_tpu_torch.bsdf import hair as th
+
+    mat, mat_id, h, wo, wis, u = args
+    twin, ms_plain = timed(lambda: th.hair_bounce(
+        th.material_at(mat, mat_id), h, wo, wis, u))
+    names = ["f", "pdf", "wi_h", "f_h", "pdf_h"]
+    for name, a, b in zip(names, out, twin):
+        for j, (x, y) in enumerate(zip(a, b) if name in ("f", "pdf")
+                                   else [(a, b)]):
+            same = ((x.view(torch.int32) == y.view(torch.int32))
+                    | (torch.isnan(x) & torch.isnan(y)))
+            require(bool(same.all()), phase,
+                    f"hair kernel {name}[{j}] differs from the twin in "
+                    f"{int((~same).sum())} of {same.numel()} values")
+    _, ms = timed_device(lambda: th.hair_bounce_kernel(*args), 5)
+    n, k = h.shape[0], len(wis)
+    if "ops_per_lane" not in st:
+        st["ops_per_lane"] = hair_ops_per_lane(args)
+    n_bytes = (nbytes(h, wo, th.material_table(mat), *wis, *out[0],
+                      *out[1], *out[2:])
+               + n * 16 + (0 if mat.beta_m.ndim == 0 else 4 * n))
+    add_bound(st, n * st["ops_per_lane"] / FP32_PEAK * 1e3,
+              n_bytes / HBM_BYTES_S * 1e3)
+    st["directions"] = k
+    st["ms"] += ms
+    st["plain_ms"] += ms_plain
+
+
+def phase_hair(sc, cam, dev, ptxas, width=WIDTH, height=HEIGHT, depth=DEPTH,
+               strip=0, phase="hair3"):
+    """Every hair_kernel launch of one strip (one a bounce) against the
+    plain twin, bit for bit, and timed. -> the launch stats."""
+    import torch
+
+    from yhair_tpu_torch import kernels
+    from yhair_tpu_torch.parallel import mesh
+
+    pid = strip_pixels(width, height, strip, dev)
+    before = kernels.LAUNCHES["hair_kernel"]
+    with HairRecorder() as rec, torch.no_grad():
+        img = mesh.trace_pixels(sc, cam, width, height, pid,
+                                torch.zeros_like(pid), mesh.key_seed(0),
+                                depth, device=dev)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(img).all()), phase, "strip not finite")
+    launched = kernels.LAUNCHES["hair_kernel"] - before
+    require(len(rec.calls) == depth == launched, phase,
+            f"{launched} hair_kernel launches, {len(rec.calls)} calls, "
+            f"at depth {depth}: one a bounce expected")
+    st = new_stats(len(rec.calls))
+    for args, out in rec.calls:
+        hold_hair(st, args, out, phase)
+    per_launch(st)
+    entry = [i for i, ln in enumerate(ptxas)
+             if "Compiling entry function" in ln and "hair_kernel" in ln]
+    emit(phase=phase, ok=True, strip_rays=STRIP, depth=depth,
+         strip_index=strip, launches=st["launches"],
+         directions=st["directions"], kernel_vs_plain="bit-equal",
+         ops_per_lane=st["ops_per_lane"],
+         ptxas=ptxas[entry[0]:entry[0] + 3] if entry else None,
+         per_launch_ms={f: st[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "ops_ms", "bytes_ms")},
+         bound_by=st["bound_by"])
+    return st
+
+
 def phase_triangles(sc, cam, dev, width, height, depth, strip,
                     phase="triangles5"):
     """Every triangle search of one strip (the nearest searches and the
@@ -806,6 +970,13 @@ def phase_main(sc, cam, dev, width=WIDTH, height=HEIGHT, depth=DEPTH,
                 f"triangle searches not all on the kernels: {launches}, "
                 f"{counts['tri.rays_kernel']} of {counts['tri.rays']} rays")
     n_rays = width * height * SPP
+    # one hair_kernel launch a bounce a strip, every hair lane on it
+    launches["hair_kernel"] = kernels.LAUNCHES["hair_kernel"]
+    require(launches["hair_kernel"] == -(-n_rays // STRIP) * depth
+            and counts["shade.hair_kernel"] == counts["shade.hair"], phase,
+            f"hair shading not all on the kernel: {launches}, "
+            f"{counts.get('shade.hair_kernel')} of {counts['shade.hair']} "
+            f"hair lanes")
     rays = n_rays * depth * (1 + shadow_rays_per_bounce(sc))
     lanes = counts["rays.bounce_lanes"] + counts["rays.shadow_lanes"]
     require(lanes == rays, phase, f"{lanes} lanes searched, {rays} counted")
@@ -2161,9 +2332,10 @@ def phase_invert5spec(sc5, img5, dev):
     return hit_st, any_st, lists_st, launches
 
 
-def kernel_record(name, replaces, st, launches, path):
+def kernel_record(name, replaces, st, launches, path,
+                  source="yhair_tpu_torch/csrc/intersect.cu"):
     return {"name": name, "path": path, "route": "cuda",
-            "source": "yhair_tpu_torch/csrc/intersect.cu",
+            "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
@@ -2188,7 +2360,7 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
 
     t_start = time.time()
-    phase_build()
+    _, ptxas = phase_build()
     if args.stop_after == "build":
         return 0
 
@@ -2200,6 +2372,7 @@ def main(argv=None):
          clusters=sc.accel.n_clusters, lights=sc.n_lights,
          seconds=time.time() - t0)
     hit_stats, any_stats, lists_stats = phase_kernels(sc, cam, dev)
+    hair3 = phase_hair(sc, cam, dev, ptxas)
     if args.stop_after == "kernels":
         return 0
     launches, img3, _ = phase_main(sc, cam, dev)
@@ -2217,6 +2390,8 @@ def main(argv=None):
     strip5 = W5 * H5 // STRIP // 2      # the strip through the centre
     hit5, any5, lists5 = phase_kernels(sc5, cam5, dev, W5, H5, DEPTH5,
                                        strip5, phase="kernels5")
+    hair5 = phase_hair(sc5, cam5, dev, ptxas, W5, H5, DEPTH5, strip5,
+                       phase="hair5")
     tri_hit5, tri_any5 = phase_triangles(sc5, cam5, dev, W5, H5, DEPTH5,
                                          strip5)
     launches5, img5, _ = phase_main(sc5, cam5, dev, W5, H5, DEPTH5,
@@ -2271,6 +2446,14 @@ def main(argv=None):
         for name, fn, st in (
                 ("tri_hit_kernel", "135 nearest_hit", tri_hit5),
                 ("tri_any_kernel", "171 occluded", tri_any5))]
+    records += [
+        kernel_record("hair_kernel" + suffix,
+                      "none (yhair_tpu/bsdf/hair.py is jnp fused by XLA)",
+                      st, lc["hair_kernel"], path,
+                      source="yhair_tpu_torch/csrc/hair.cu")
+        for suffix, path, lc, st in (
+                ("", "config 3, bench.py workload", launches, hair3),
+                (" (config 5)", "config 5, furry bunny", launches5, hair5))]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """The search layer's two seams, on the CPU.
 
 The launch seam: ``yhair_tpu_torch/kernels.py``'s table of C entry
-points against the ``extern "C"`` parameter lists of ``csrc/intersect.cu``,
+points against the ``extern "C"`` parameter lists of ``csrc/*.cu``,
 and ``kernels.launch`` against a fake library (no card or nvcc needed).
 The backend seam: the integrator reaches every segment search through
 ``scene.accel``, and the brute-force scan, the clusters, posed instances
@@ -25,7 +25,7 @@ from yhair_tpu_torch.integrator import path as tpath
 from yhair_tpu_torch.ops import build_scene_clusters
 
 PATH_PY = Path(tpath.__file__)
-SOURCE = kernels.SOURCE.read_text()
+SOURCE = "".join(f.read_text() for f in kernels.SOURCES)
 EXTERN = re.compile(r'extern "C" (\w+) (\w+)\(([^)]*)\)')
 
 
@@ -113,6 +113,54 @@ def test_launch_maps_arguments_raises_and_counts(monkeypatch):
     with pytest.raises(TypeError):
         kernels.launch("yhair_tri_lanes", 256, 5)   # a query, not a kernel
     assert len(fake.calls) == n_calls
+
+
+def test_library_is_named_by_every_source_and_the_flags(monkeypatch,
+                                                       tmp_path):
+    """``kernels.SOURCES`` is every CUDA source in ``csrc/``; an edit to
+    any of them, or to the flags, names another library, so it
+    rebuilds."""
+    csrc = kernels.SOURCES[0].parent
+    assert set(kernels.SOURCES) == (set(csrc.glob("*.cu"))
+                                    | set(csrc.glob("*.cuh")))
+    copies = [tmp_path / f.name for f in kernels.SOURCES]
+    for f, c in zip(kernels.SOURCES, copies):
+        c.write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "SOURCES", tuple(copies))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    names = {kernels.library_path()}
+    for c in copies:
+        c.write_bytes(c.read_bytes() + b"\n// edited\n")
+        names.add(kernels.library_path())
+    monkeypatch.setattr(kernels, "NVCC_FLAGS",
+                        [*kernels.NVCC_FLAGS, "-lineinfo"])
+    names.add(kernels.library_path())
+    assert len(names) == len(copies) + 2
+    assert all(n.parent == tmp_path / "build" for n in names)
+
+
+def test_build_finds_a_built_library_without_nvcc(monkeypatch, tmp_path):
+    """A process that finds the library compiles nothing: build returns
+    it and an empty log without running nvcc."""
+    def no_nvcc(*args, **kwargs):
+        raise AssertionError("nvcc ran")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels.subprocess, "run", no_nvcc)
+    monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
+    lib = kernels.library_path()
+    lib.write_bytes(b"")
+    assert kernels.build() == (lib, "")
+    lib.unlink()
+    with pytest.raises(AssertionError, match="nvcc ran"):
+        kernels.build()
+
+
+def test_hair_kernel_is_declared_once():
+    """The hair kernel's entry has its row and its own LAUNCHES key."""
+    keys = [key for _, key in kernels.ENTRIES.values() if key]
+    assert kernels.ENTRIES["yhair_hair_shade"][1] == "hair_kernel"
+    assert keys.count("hair_kernel") == 1 and "hair_kernel" in \
+        kernels.LAUNCHES
 
 
 BACKEND_IMPORTS = ("accel", "instanced", "traverse", "intersect_kernel",

@@ -3,7 +3,7 @@
 A second implementation of ``yhair_tpu`` beside it: the same modules under
 the same names, written with torch tensors, and the TPU's Pallas cluster
 kernels replaced by CUDA kernels written by hand for ``sm_90a``
-(``csrc/intersect.cu``). ``yhair_tpu`` stays the reference; the tests in
+(``csrc/intersect.cu``; ``csrc/hair.cu``: the hair BSDF of a bounce). ``yhair_tpu`` stays the reference; the tests in
 ``tests/test_torch_*.py`` hold each module of this package against it.
 
 It renders and differentiates scenes of hair segments (one material or
@@ -30,7 +30,8 @@ Layer map:
   ops/         clusters, the cluster search's three CUDA kernels
                (``lists_kernel``, ``hit_kernel`` + ``hit_merge_kernel``,
                ``any_kernel``) + plain twins
-  bsdf/        hair and surface BSDFs
+  bsdf/        hair and surface BSDFs; a bounce's hair BSDF in one
+               ``hair_kernel`` launch on gradient-free passes + the twin
   integrator/  wavefront path tracer, through ``scene.accel`` alone
   parallel/    counter-hash uniforms, the tile pixel order, rendering and
                training steps over process-group ranks

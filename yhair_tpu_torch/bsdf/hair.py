@@ -11,6 +11,11 @@ the plain form's derivative is infinite.
 Convention (pbrt's): local frame x = strand tangent, sin(theta) = w.x,
 phi = atan2(w.z, w.y); ``f`` carries a 1/|wi.z| factor which the
 integrator cancels with its |cos| term.
+
+A bounce's hair work (the context, f and pdf at each next-event
+direction, the BSDF sample) is ``hair_bounce``, the torch code, or on
+gradient-free passes on the card ``hair_bounce_kernel``: one launch of
+``csrc/hair.cu:hair_kernel``, bit-equal to it.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 P_MAX = 3
 SQRT_PI_OVER_8 = 0.626657069
@@ -418,3 +425,78 @@ def hair_sample(mat: HairMaterial, h, wo, u):
     wi = hair_sample_wi(ctx, u)
     f, pdf = hair_f_pdf_ctx(ctx, wi)
     return wi, f, pdf
+
+
+# ---------------------------------------------------------------------------
+# one bounce's hair work: the torch code, and its CUDA kernel
+
+# a material row of the kernel's table: sigma_a (3), beta_m, beta_n,
+# alpha, eta
+MAT_COLS = 7
+
+
+def material_at(mat: HairMaterial, mat_id):
+    """Each lane's hair material: the rows of mat_id (N,) of a per-shape
+    table (M-row leaves); one material's 0-dim leaves broadcast as they
+    are."""
+    if mat.beta_m.ndim == 0:
+        return mat
+    mat_id = mat_id.long()
+    return type(mat)(*(a[mat_id] for a in mat))
+
+
+def hair_bounce(mat: HairMaterial, h, wo, wis, u, n_f=0):
+    """One bounce's hair BSDF at each lane: the context of (mat, h, wo);
+    f towards each local direction of ``wis`` and the pdf there, but at
+    the first ``n_f`` (None); a direction drawn from u (..., 4), and f
+    and the pdf there. The plain twin of ``hair_bounce_kernel`` (the
+    torch code, which autograd differentiates). -> (fs, pdfs, wi_h, f_h,
+    pdf_h), wi_h and pdf_h detached."""
+    ctx = hair_ctx(mat, h, wo)
+    fs, pdfs = [], []
+    for j, wi in enumerate(wis):
+        if j < n_f:
+            fs.append(hair_f_ctx(ctx, wi))
+            pdfs.append(None)
+        else:
+            f, pdf = hair_f_pdf_ctx(ctx, wi)
+            fs.append(f)
+            pdfs.append(pdf)
+    wi_h = hair_sample_wi(ctx, u).detach()
+    f_h, pdf_h = hair_f_pdf_ctx(ctx, wi_h)
+    return fs, pdfs, wi_h, f_h, pdf_h.detach()
+
+
+def material_table(mat: HairMaterial):
+    """(M, MAT_COLS) rows of sigma_a, beta_m, beta_n, alpha, eta: one row
+    for one material (0-dim leaves), one a shape for a per-shape table."""
+    return torch.cat([mat.sigma_a.reshape(-1, 3),
+                      *(x.reshape(-1, 1) for x in mat[1:])], 1)
+
+
+def hair_bounce_kernel(mat: HairMaterial, mat_id, h, wo, wis, u):
+    """``hair_bounce`` of lanes on the card, f and pdf at every direction,
+    in one ``hair_kernel`` launch; nothing is differentiated. mat: one
+    material, or a per-shape table read at mat_id (N,) int32 (the two
+    cases of ``material_at``). h (N,), wo (N, 3) and each of wis (N, 3)
+    float32; u (N, 4), its rows may be strided. ValueError unless the
+    inputs fit. -> (fs, pdfs, wi_h, f_h, pdf_h), fs and pdfs views of
+    one (N, K, 3) and one (N, K) tensor."""
+    n, k, f32 = h.shape[0], len(wis), torch.float32
+    table = material_table(mat)
+    mat_id = None if mat.beta_m.ndim == 0 else mat_id
+    kernels.check_tensors(
+        h.device, (h, f32, (n,)), (wo, f32, (n, 3)),
+        (table, f32, (table.shape[0], MAT_COLS)),
+        (mat_id, torch.int32, (n,)), *((w, f32, (n, 3)) for w in wis),
+        (u, f32, (n, 4), True))
+    wi = torch.stack(wis, 1) if k else None
+    f = torch.empty((n, k, 3), dtype=f32, device=h.device)
+    pdf = torch.empty((n, k), dtype=f32, device=h.device)
+    wi_h, f_h = (torch.empty((n, 3), dtype=f32, device=h.device)
+                 for _ in range(2))
+    pdf_h = torch.empty(n, dtype=f32, device=h.device)
+    kernels.launch("yhair_hair_shade", h, wo, table, mat_id, wi, k, u,
+                   u.stride(0), n, f if k else None, pdf if k else None,
+                   wi_h, f_h, pdf_h)
+    return list(f.unbind(1)), list(pdf.unbind(1)), wi_h, f_h, pdf_h

@@ -371,14 +371,12 @@ def _mis(a, b):
     return a ** 2 / torch.clamp(a ** 2 + b ** 2, min=1e-30)
 
 
-def _hair_mat_at(scene: Scene, hair_mid):
-    """Each ray's hair material: the table rows of hair_mid when the
-    scene has a per-shape table; one material's leaves broadcast as
-    they are."""
-    if scene.hair.beta_m.ndim == 0:
-        return scene.hair
-    hair_mid = hair_mid.long()
-    return type(scene.hair)(*(a[hair_mid] for a in scene.hair))
+def _hair_kernel_route(x):
+    """Whether a bounce's hair BSDF runs as one CUDA launch: on tensors on
+    the card with autograd off (``progressive_render`` and ``render_fn``
+    are ``no_grad``); the inverse steps' passes differentiate the torch
+    code."""
+    return x.is_cuda and not torch.is_grad_enabled()
 
 
 def _diffuse_frame(nrm):
@@ -426,7 +424,7 @@ def trace_eyelight(scene: Scene, o, d, chunk=2048):
     sp = _surface_at(scene, hs)
     is_hair, fx, fy, fz = _shading_frame(hs, d)
     wo = _to_local(-d, fx, fy, fz)
-    f_hair = th.hair_f(_hair_mat_at(scene, hs.hair_mid), hs.h, wo,
+    f_hair = th.hair_f(th.material_at(scene.hair, hs.hair_mid), hs.h, wo,
                        wo) * torch.abs(wo[:, 2:3])
     f_surf = ts.surface_f(sp, wo, wo) * torch.abs(wo[:, 2:3]) + sp.emission
     f = torch.where(is_hair[:, None], f_hair, f_surf) * math.pi
@@ -490,8 +488,6 @@ def _shade(scene: Scene, hs: Hit, o, d, ub, depth, path, perm, chunk,
     wo = _to_local(-d, fx, fy, fz)
     pos = hs.position
     ray_eps = torch.where(is_hair, 2.0 * hs.radius, 1e-4)
-    # wi-independent hair BSDF work, shared by every wi below
-    hctx = th.hair_ctx(_hair_mat_at(scene, hs.hair_mid), hs.h, wo)
     # next-event estimation skips the lanes that pass through
     lit = alive & ~pass_th
     if tracing.enabled():
@@ -501,47 +497,18 @@ def _shade(scene: Scene, hs: Hit, o, d, ub, depth, path, perm, chunk,
         tracing.add("rays.shadow_lanes", n * n_sh)
         tracing.add("rays.shadow_live", lit.sum() * n_sh)
 
-    def bsdf(wi_w):
-        """(f |cos|, detached pdf of BSDF sampling) towards wi_w."""
-        wi = _to_local(wi_w, fx, fy, fz)
-        fp_hair, pdf_hair = th.hair_f_pdf_ctx(hctx, wi)
-        cos = torch.abs(wi[:, 2:3])
-        f = torch.where(is_hair[:, None], fp_hair * cos,
-                        ts.surface_f(sp, wo, wi) * cos)
-        pdf_b = torch.where(is_hair, pdf_hair.detach(),
-                            ts.surface_pdf(sp, wo, wi).detach())
-        return f, pdf_b
-
-    # direct lighting: every point light, deterministic sum
-    for li in range(scene.n_lights if use_nee else 0):
+    # every next-event direction first: each point light's, the env map's
+    # sample, an area light's point
+    n_pt = scene.n_lights if use_nee else 0
+    lights = []
+    for li in range(n_pt):
         to_l = scene.light_pos[li] - pos
         dist = _norm(to_l)
-        wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
-        sh_o = pos + wi_w * ray_eps[:, None]
-        vis = ~occluded_scene(scene, sh_o, wi_w, dist - ray_eps,
-                              chunk=chunk, perm=perm)
-        wi = _to_local(wi_w, fx, fy, fz)
-        f_hair = th.hair_f_ctx(hctx, wi) * torch.abs(wi[:, 2:3])
-        f_surf = ts.surface_f(sp, wo, wi) * torch.abs(wi[:, 2:3])
-        f = torch.where(is_hair[:, None], f_hair, f_surf)
-        contrib = beta * f * scene.light_intensity[li] / torch.clamp(
-            dist[:, None] ** 2, min=1e-12)
-        L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
-
-    # environment-map NEE, weighted against BSDF sampling
+        lights.append((dist, to_l / torch.clamp(dist[:, None], min=1e-12)))
+    nee_w = [wi_w for _, wi_w in lights]
     if use_env and use_nee:
-        wi_w, pdf_e = env_sample(scene, ub[:, 6], ub[:, 7])
-        le = env_eval(scene, wi_w)
-        sh_o = pos + wi_w * ray_eps[:, None]
-        vis = ~occluded_scene(scene, sh_o, wi_w,
-                              torch.full((n,), INF, device=dev),
-                              chunk=chunk, perm=perm)
-        f, pdf_b = bsdf(wi_w)
-        contrib = beta * f * le * (
-            _mis(pdf_e, pdf_b) / torch.clamp(pdf_e, min=1e-12))[:, None]
-        L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
-
-    # area-light NEE (emissive spheres, mesh triangles)
+        wi_e, pdf_e = env_sample(scene, ub[:, 6], ub[:, 7])
+        nee_w.append(wi_e)
     if use_area:
         el = torch.clamp(
             torch.searchsorted(scene.al_cdf, ub[:, 5].contiguous()),
@@ -550,29 +517,77 @@ def _shade(scene: Scene, hs: Hit, o, d, ub, depth, path, perm, chunk,
                                             ub[:, 9])
         lpos = lpos.detach()
         to_l = lpos - pos
-        dist = _norm(to_l)
-        wi_w = to_l / torch.clamp(dist[:, None], min=1e-12)
-        pdf_a = _area_light_pdf_sa(scene, el, pos, lpos, lnrm).detach()
+        dist_a = _norm(to_l)
+        wi_a = to_l / torch.clamp(dist_a[:, None], min=1e-12)
+        nee_w.append(wi_a)
+    nee = [_to_local(wi_w, fx, fy, fz) for wi_w in nee_w]
+    # the hair BSDF towards them and its sample: on gradient-free passes on
+    # the card one hair_kernel launch, else the torch code (bit-equal)
+    if _hair_kernel_route(wo):
+        hf, hpdf, wi_h, f_h, pdf_h = th.hair_bounce_kernel(
+            scene.hair, hs.hair_mid, hs.h, wo, nee, ub[:, :4])
+        if tracing.enabled():
+            tracing.add("shade.hair_kernel", (alive & is_hair).sum())
+    else:
+        hf, hpdf, wi_h, f_h, pdf_h = th.hair_bounce(
+            th.material_at(scene.hair, hs.hair_mid), hs.h, wo, nee,
+            ub[:, :4], n_f=n_pt)
+
+    def bsdf(j):
+        """(f |cos|, detached pdf of BSDF sampling) towards nee[j]."""
+        wi = nee[j]
+        cos = torch.abs(wi[:, 2:3])
+        f = torch.where(is_hair[:, None], hf[j] * cos,
+                        ts.surface_f(sp, wo, wi) * cos)
+        pdf_b = torch.where(is_hair, hpdf[j].detach(),
+                            ts.surface_pdf(sp, wo, wi).detach())
+        return f, pdf_b
+
+    # direct lighting: every point light, deterministic sum
+    for li, (dist, wi_w) in enumerate(lights):
         sh_o = pos + wi_w * ray_eps[:, None]
-        vis = ~occluded_scene(scene, sh_o, wi_w, dist - 2.0 * ray_eps,
+        vis = ~occluded_scene(scene, sh_o, wi_w, dist - ray_eps,
                               chunk=chunk, perm=perm)
-        f, pdf_b = bsdf(wi_w)
+        wi = nee[li]
+        f_hair = hf[li] * torch.abs(wi[:, 2:3])
+        f_surf = ts.surface_f(sp, wo, wi) * torch.abs(wi[:, 2:3])
+        f = torch.where(is_hair[:, None], f_hair, f_surf)
+        contrib = beta * f * scene.light_intensity[li] / torch.clamp(
+            dist[:, None] ** 2, min=1e-12)
+        L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
+
+    # environment-map NEE, weighted against BSDF sampling
+    if use_env and use_nee:
+        le = env_eval(scene, wi_e)
+        sh_o = pos + wi_e * ray_eps[:, None]
+        vis = ~occluded_scene(scene, sh_o, wi_e,
+                              torch.full((n,), INF, device=dev),
+                              chunk=chunk, perm=perm)
+        f, pdf_b = bsdf(n_pt)
+        contrib = beta * f * le * (
+            _mis(pdf_e, pdf_b) / torch.clamp(pdf_e, min=1e-12))[:, None]
+        L = L + torch.where((lit & vis)[:, None], contrib, 0.0)
+
+    # area-light NEE (emissive spheres, mesh triangles)
+    if use_area:
+        pdf_a = _area_light_pdf_sa(scene, el, pos, lpos, lnrm).detach()
+        sh_o = pos + wi_a * ray_eps[:, None]
+        vis = ~occluded_scene(scene, sh_o, wi_a, dist_a - 2.0 * ray_eps,
+                              chunk=chunk, perm=perm)
+        f, pdf_b = bsdf(len(nee) - 1)
         le = scene.al_emission[el]
         if scene.tex_meta.shape[0]:
             # NEE integrates the same textured emission BSDF hits see
             le = le * sample_bilinear(scene.tex_data, scene.tex_meta,
                                       scene.al_tex[el], luv[:, 0],
                                       luv[:, 1])
-        ok = lit & vis & (pdf_a > 1e-12) & (dist > 4.0 * ray_eps)
+        ok = lit & vis & (pdf_a > 1e-12) & (dist_a > 4.0 * ray_eps)
         contrib = beta * f * le * (
             _mis(pdf_a, pdf_b) / torch.clamp(pdf_a, min=1e-12))[:, None]
         L = L + torch.where(ok[:, None], contrib, 0.0)
 
     # BSDF sampling: the direction and its pdf are detached, f
     # carries the gradient
-    wi_h = th.hair_sample_wi(hctx, ub[:, :4]).detach()
-    f_h, pdf_h = th.hair_f_pdf_ctx(hctx, wi_h)
-    pdf_h = pdf_h.detach()
     w_hair = f_h * torch.abs(wi_h[:, 2:3]) / torch.clamp(
         pdf_h[:, None], min=1e-12)
     w_hair = torch.where((pdf_h > 1e-12)[:, None], w_hair, 0.0)
@@ -620,8 +635,9 @@ def trace(scene: Scene, o, d, uniforms, max_depth=4, chunk=2048,
     live lanes, for its nearest search (``rays.bounce_lanes``,
     ``rays.bounce_live``) and its shadow searches
     (``rays.shadow_lanes``, ``rays.shadow_live``), and the live lanes
-    it shades (``shade.live``) and of those the lanes on hair
-    (``shade.hair``).
+    it shades (``shade.live``), of those the lanes on hair
+    (``shade.hair``) and the hair lanes ``hair_kernel`` shaded
+    (``shade.hair_kernel``, counted where it runs).
     """
     if sampler not in ("path", "naive", "eyelight"):
         raise ValueError(f"unknown sampler {sampler!r}")

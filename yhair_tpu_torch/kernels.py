@@ -1,12 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels
-(``csrc/intersect.cu``).
+(``csrc/intersect.cu``: the searches; ``csrc/hair.cu``: the hair BSDF).
 
-nvcc compiles the source into a shared library with a plain C interface
-at first use, into ``yhair_tpu_torch/_build/`` (git-ignored), named by a
-hash of the source and flags so an edit rebuilds. The library is loaded
-with ctypes. Nothing here runs at import: the CPU tests import every
-module and have no nvcc. ``ENTRIES`` describes the C interface once;
-every kernel call goes through ``launch``.
+One nvcc call compiles every source into one shared library with a plain
+C interface at first use, into ``yhair_tpu_torch/_build/`` (git-ignored),
+named by a hash of the sources and flags so an edit to either rebuilds;
+a later process finds the library and only loads it. The library is
+loaded with ctypes. Nothing here runs at import: the CPU tests import
+every module and have no nvcc. ``ENTRIES`` describes the C interface
+once; every kernel call goes through ``launch``.
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "intersect.cu"
+SOURCES = (_PKG / "csrc" / "intersect.cu", _PKG / "csrc" / "hair.cu")
 BUILD_DIR = _PKG / "_build"
 # no fast math: FMA contraction off and IEEE division / square root keep
-# the kernels' t bit-equal to the torch recompute (see the source's note)
+# the kernels bit-equal to the torch ops they replace (see the sources'
+# notes)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v"]
@@ -44,6 +46,7 @@ ENTRIES = {
     "yhair_tri_hit": ("ppppp" "ii" "ff" "pp" "s", "tri_hit_kernel"),
     "yhair_tri_any": ("pppppp" "ii" "f" "p" "s", "tri_any_kernel"),
     "yhair_tri_lanes": ("ii", None),
+    "yhair_hair_shade": ("ppppp" "i" "p" "ii" "ppppp" "s", "hair_kernel"),
 }
 # CUDA kernel launches by kernel, added to by ``launch`` only
 LAUNCHES = {key: 0 for _, key in ENTRIES.values() if key}
@@ -58,18 +61,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels if this source + flags were not built yet.
-    -> (library path, nvcc's output: registers, shared memory, spills)."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
+def library_path() -> Path:
+    """Where the library of these sources + flags is: named by a hash of
+    every source and the flags."""
+    tag = hashlib.sha256(b"".join(f.read_bytes() for f in SOURCES)
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libyhair_intersect_{tag}.so"
+    return BUILD_DIR / f"libyhair_kernels_{tag}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels if these sources + flags were not built yet.
+    -> (library path, nvcc's output: registers, shared memory, spills;
+    "" where the library was there and nvcc did not run)."""
+    lib = library_path()
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+                           *map(str, SOURCES)], capture_output=True,
+                          text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
@@ -111,17 +122,27 @@ def launch(entry, *args):
 
 def check(block, o, d, *expect):
     """Raise ValueError unless the rays o, d are float32 (N, 3) with N a
-    multiple of ``block``, each (tensor, dtype, shape) of ``expect`` has
-    that dtype and shape (None tensors skipped), and all are contiguous
-    on the rays' device: what the kernels take."""
+    multiple of ``block`` and the tensors of ``expect`` fit
+    (``check_tensors``) on the rays' device: what the searches take."""
     n, f32 = o.shape[0], torch.float32
     if n % block:
         raise ValueError(f"rays must be (N, 3) with N % {block} == 0")
-    for x, dtype, shape in ((o, f32, (n, 3)), (d, f32, (n, 3)), *expect):
+    check_tensors(o.device, (o, f32, (n, 3)), (d, f32, (n, 3)), *expect)
+
+
+def check_tensors(device, *expect):
+    """Raise ValueError unless each (tensor, dtype, shape) of ``expect``
+    has that dtype and shape and is contiguous on ``device``; None
+    tensors are skipped. A fourth item True lets the tensor's rows be
+    strided (its last dimension still unit-strided): what the kernels
+    take."""
+    for x, dtype, shape, *strided_rows in expect:
         if x is None:
             continue
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"kernel inputs must be {dtype} {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if x.device != o.device or not x.is_contiguous():
+        if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"kernel inputs must be {dtype} {tuple(shape)}, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+        dense = (x.stride(-1) == 1 if strided_rows and strided_rows[0]
+                 else x.is_contiguous())
+        if x.device != device or not dense:
             raise ValueError("kernel inputs must be contiguous on one device")
